@@ -1,0 +1,122 @@
+"""Dense gate pass: the device side of the polish path.
+
+For every window head of a draft contig the gate kernel
+(ops/gate_kernel.py) computes the reference's absence gate
+``snv || !contains || (counting && count < p)`` (ntedit.cpp:1806-1807)
+on valid windows, plus a forced gate on windows that hold an accepted
+IUPAC byte, packed to little-endian uint32 words.  The contig uploads once
+as ASCII; the gate words stream back chunk by chunk so the host repair can
+start on chunk i while the device still computes chunk i+1.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ntedit_tpu_torch.ops import gate_kernel
+
+# heads per streamed chunk (a multiple of the kernel's 8192-head tile)
+DEFAULT_CHUNK = 1 << 22
+
+
+def _effective_chunk(n: int, chunk: int) -> int:
+    """Smallest power-of-two chunk >= n, clamped to [2^15, chunk]: a short
+    contig is one small chunk, a long one streams in ``chunk``-head
+    pieces."""
+    c = 1 << 15
+    while c < n and c < chunk:
+        c <<= 1
+    return min(c, chunk)
+
+
+def packed_to_positions(words: np.ndarray, n: int) -> np.ndarray:
+    """Little-endian packed gate words -> sorted gate head positions < n.
+    Gates are sparse (~0.1-3% of heads): touch only the nonzero words."""
+    nzw = np.nonzero(words)[0]
+    if not len(nzw):
+        return np.zeros(0, dtype=np.int64)
+    sub = np.unpackbits(
+        words[nzw].view(np.uint8), bitorder="little"
+    ).reshape(-1, 32)
+    rows, cols = np.nonzero(sub)
+    g = nzw[rows].astype(np.int64) * 32 + cols
+    return g[g < n]
+
+
+def _staged(seq: np.ndarray, size: int, pin: bool) -> torch.Tensor:
+    """The contig's ASCII bytes zero-padded to ``size`` in a host tensor."""
+    buf = torch.zeros(size, dtype=torch.uint8, pin_memory=pin)
+    buf.numpy()[: len(seq)] = seq
+    return buf
+
+
+def iter_gate_chunks(
+    seq: np.ndarray,
+    df,
+    snv: bool = False,
+    min_threshold: int = 1,
+    chunk: int = DEFAULT_CHUNK,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> Iterator[tuple]:
+    """Stream gate positions per chunk: yields (frontier, gates) where
+    ``gates`` are ABSOLUTE head positions < ``frontier`` and every head
+    < frontier has now been reported; frontiers strictly increase.
+
+    On CUDA the contig uploads once, every chunk's kernel is launched up
+    front on ``stream`` (a new one when None), and each chunk's words are
+    copied without blocking into a pinned host buffer with one event per
+    chunk; the chunks then drain in order.  On the CPU each chunk runs the
+    plain version when it is consumed."""
+    k = df.k
+    if k > gate_kernel.MAX_K:
+        raise ValueError(f"the gate pass supports k <= {gate_kernel.MAX_K}, got k={k}")
+    L = len(seq)
+    n = L - k + 1
+    if n <= 0:
+        return
+    chunk = _effective_chunk(n, chunk)
+    starts = range(0, n, chunk)
+    size = gate_kernel.padded_len(n)
+    if df.device.type != "cuda":
+        host = _staged(seq, size, pin=False).to(df.device)
+        for start in starts:
+            m = min(chunk, n - start)
+            words = gate_kernel.gate_words(host[start:], m, df, snv, min_threshold)
+            yield start + m, packed_to_positions(words.cpu().numpy().view(np.uint32), m) + start
+
+        return
+    if stream is None:
+        stream = torch.cuda.Stream(df.device)
+    staged = _staged(seq, size, pin=True)
+    words_host = torch.empty(-(-n // 32), dtype=torch.int32, pin_memory=True)
+    pending = []
+    with torch.cuda.stream(stream):
+        dev_seq = torch.empty(size, dtype=torch.uint8, device=df.device)
+        dev_seq.copy_(staged, non_blocking=True)
+        for start in starts:
+            m = min(chunk, n - start)
+            words = gate_kernel.gate_words(dev_seq[start:], m, df, snv, min_threshold)
+            dst = words_host[start // 32 : start // 32 + words.numel()]
+            dst.copy_(words, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+            pending.append((start, m, dst, words, done))
+    for start, m, dst, _words, done in pending:
+        done.synchronize()
+        yield start + m, packed_to_positions(dst.numpy().view(np.uint32), m) + start
+
+
+def flag_contig_gates(
+    seq: np.ndarray,
+    df,
+    snv: bool = False,
+    min_threshold: int = 1,
+    chunk: int = DEFAULT_CHUNK,
+) -> np.ndarray:
+    """Gate head positions for one contig: every chunk of iter_gate_chunks,
+    concatenated."""
+    parts = [g for _, g in iter_gate_chunks(seq, df, snv, min_threshold, chunk)]
+    return np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)

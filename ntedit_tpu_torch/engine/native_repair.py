@@ -1,0 +1,411 @@
+"""ctypes binding of the native sparse-repair engine (native/repair.cpp).
+
+The engine consumes the device's gate hints and performs the exact
+sequential scan-and-repair of the reference at native speed; its output is
+rebuilt into a ``ContigResult`` (contig buffer with substitutions/masks
+applied, RopeCells node stream for indels, SubRec list) for the writers.
+
+The binding builds ``native/repair.cpp`` with g++ into the port's own
+build directory (utils/build.py), with the flags of native/Makefile, and
+raises when the build or the load fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+
+from ntedit_tpu_torch.core import bloom
+from ntedit_tpu_torch.engine.config import EngineConfig
+from ntedit_tpu_torch.engine.records import ContigResult, RopeCells, SubRec
+from ntedit_tpu_torch.utils.build import build_library, host_cpu
+
+SOURCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native", "repair.cpp",
+)
+
+_lib = None
+
+
+class _NtrFilter(ctypes.Structure):
+    _fields_ = [
+        ("kind", ctypes.c_int32),
+        ("hash_num", ctypes.c_int32),
+        ("data", ctypes.c_void_p),
+        ("nbytes", ctypes.c_uint64),
+    ]
+
+
+class _NtrParams(ctypes.Structure):
+    _fields_ = [
+        ("k", ctypes.c_int32),
+        ("jump", ctypes.c_int32),
+        ("mode", ctypes.c_int32),
+        ("max_insertions", ctypes.c_int32),
+        ("max_deletions", ctypes.c_int32),
+        ("min_threshold", ctypes.c_int32),
+        ("max_threshold", ctypes.c_int32),
+        ("insertion_cap", ctypes.c_int32),
+        ("snv", ctypes.c_int32),
+        ("mask", ctypes.c_int32),
+        ("missing_needed", ctypes.c_double),
+        ("present_needed", ctypes.c_double),
+        ("present_needed_deletion", ctypes.c_double),
+        ("rope_compat", ctypes.c_int32),
+    ]
+
+
+def _command(src: str, out: str) -> list:
+    # native/Makefile: CXXFLAGS and the libntedit_repair.so rule
+    return ["g++", "-O3", "-march=native", "-std=c++17", "-Wall", "-shared", "-fPIC",
+            "-o", out, src]
+
+
+def get_lib():
+    """Load the native repair library, building it on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library("ntedit_repair", SOURCE, _command, salt=host_cpu()))
+        lib.ntr_polish_contig.restype = ctypes.c_int64
+        lib.ntr_polish_contig.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,              # contig, L
+            ctypes.c_void_p, ctypes.c_int64,              # gates, n_gates
+            ctypes.POINTER(_NtrFilter), ctypes.POINTER(_NtrFilter),
+            ctypes.POINTER(_NtrParams),
+            ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ]
+        _lib = lib
+    return _lib
+
+
+def _filter_desc(bf) -> tuple:
+    """Host filter -> (C descriptor, backing array).  Callers keep the
+    array referenced across the native call."""
+    if isinstance(bf, bloom.BlockedKmerBloomFilter):
+        arr, kind = bf.words, 1
+    elif isinstance(bf, bloom.KmerCountingBloomFilter8):
+        arr, kind = bf.counters, 2
+    elif isinstance(bf, bloom.KmerBloomFilter):
+        arr, kind = bf.data, 0
+    else:
+        raise TypeError(f"not a k-mer filter: {type(bf).__name__}")
+    arr = np.ascontiguousarray(arr)
+    return _NtrFilter(
+        kind=kind, hash_num=bf.hash_num,
+        data=arr.ctypes.data_as(ctypes.c_void_p).value, nbytes=arr.nbytes,
+    ), arr
+
+
+def _filters_of(host_bloom, host_bloomrep) -> tuple:
+    bf_struct, bf_keep = _filter_desc(host_bloom)
+    rep_struct = rep_keep = None
+    if host_bloomrep is not None:
+        rep_struct, rep_keep = _filter_desc(host_bloomrep)
+    return bf_struct, rep_struct, (bf_keep, rep_keep)
+
+
+def _params_of(cfg: EngineConfig) -> _NtrParams:
+    return _NtrParams(
+        k=cfg.k, jump=cfg.jump, mode=cfg.mode,
+        max_insertions=cfg.max_insertions, max_deletions=cfg.max_deletions,
+        min_threshold=cfg.min_threshold, max_threshold=cfg.max_threshold,
+        insertion_cap=cfg.insertion_cap,
+        snv=int(cfg.snv), mask=int(cfg.mask),
+        missing_needed=float(cfg.missing_needed),
+        present_needed=float(cfg.present_needed),
+        present_needed_deletion=float(cfg.present_needed_deletion),
+        rope_compat=int(cfg.rope_compat),
+    )
+
+
+def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
+             rep_struct, params):
+    """One ntr_polish_contig call with capacity retries.
+
+    ``contig`` is modified in place (it may be a view into a shared
+    whole-contig buffer); every retry restores it from ``pristine`` first —
+    the engine applies substitutions/masks before a capacity retcode can
+    surface.  Returns (subs [N,10] int64, nodes [M,4] int64) or None.
+    ctypes releases the GIL for the call, so segment runs parallelize."""
+    L = contig.size
+    if gates is not None:
+        gates = np.ascontiguousarray(gates, dtype=np.int64)
+        gates_ptr = gates.ctypes.data_as(ctypes.c_void_p).value
+        n_gates = gates.size
+    else:
+        gates_ptr, n_gates = None, 0
+    subs_cap = max(4096, L // 64)
+    nodes_cap = max(4096, L // 64)
+    first = True
+    while True:
+        if not first:
+            contig[:] = np.frombuffer(pristine, dtype=np.uint8)
+        first = False
+        subs_buf = np.empty(subs_cap * 10, dtype=np.int64)
+        nodes_buf = np.empty(nodes_cap * 4, dtype=np.int64)
+        n_subs = ctypes.c_int64(0)
+        n_nodes = ctypes.c_int64(0)
+        rc = lib.ntr_polish_contig(
+            contig.ctypes.data_as(ctypes.c_void_p).value, L,
+            gates_ptr, n_gates,
+            ctypes.byref(bf_struct),
+            ctypes.byref(rep_struct) if rep_struct is not None else None,
+            ctypes.byref(params),
+            subs_buf.ctypes.data_as(ctypes.c_void_p).value, subs_cap,
+            ctypes.byref(n_subs),
+            nodes_buf.ctypes.data_as(ctypes.c_void_p).value, nodes_cap,
+            ctypes.byref(n_nodes),
+        )
+        if rc == -2:
+            subs_cap *= 4
+            continue
+        if rc == -3:
+            nodes_cap *= 4
+            continue
+        if rc != 0:
+            return None
+        return (
+            subs_buf[: n_subs.value * 10].reshape(-1, 10),
+            nodes_buf[: n_nodes.value * 4].reshape(-1, 4),
+        )
+
+
+def _subs_of(sb: np.ndarray, offset: int = 0) -> list:
+    return [
+        SubRec(
+            pos=int(r[0]) + offset, draft_char=int(r[1]), sub_base=int(r[2]),
+            num_support=int(r[3]),
+            altbase1=int(r[4]), altsupp1=int(r[5]),
+            altbase2=int(r[6]), altsupp2=int(r[7]),
+            altbase3=int(r[8]), altsupp3=int(r[9]),
+        )
+        for r in sb
+    ]
+
+
+def _append_nodes(nodes: list, nb: np.ndarray, offset: int = 0) -> int:
+    """Raw [M,4] node rows -> RopeCells node list entries (span coords
+    shifted by ``offset``).  Returns the cell count appended."""
+    total = 0
+    for kind, a, b, sup in nb:
+        if kind == 0:
+            nodes.append(["span", int(a) + offset, int(b) + offset, int(sup)])
+            total += int(b) - int(a) + 1
+        else:
+            # ins cell [-1, char, ins_sup, span_sup]
+            nodes.append(["ins", [-1, int(a), int(sup), int(b)]])
+            total += 1
+    return total
+
+
+def _result(header: str, contig: np.ndarray, sb: np.ndarray, nb: np.ndarray) -> ContigResult:
+    nodes = []
+    total = _append_nodes(nodes, nb)
+    return ContigResult(header, bytearray(contig.tobytes()), RopeCells(total, nodes),
+                        _subs_of(sb))
+
+
+def polish_contig_native(
+    host_bloom,
+    host_bloomrep,
+    cfg: EngineConfig,
+    header: str,
+    seq: bytes | np.ndarray,
+    gate_hint: Optional[np.ndarray] = None,
+) -> Optional[ContigResult]:
+    """Run the native engine on one whole contig; with no ``gate_hint`` it
+    scans every head (the full sequential scan).  Returns None when the
+    engine reports an error."""
+    lib = get_lib()
+    bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
+    params = _params_of(cfg.validate())
+    seq_bytes = bytes(seq)
+    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
+    out = _run_raw(lib, contig, seq_bytes, gate_hint, bf_struct, rep_struct, params)
+    if out is None:
+        return None
+    return _result(header, contig, *out)
+
+
+# ---------------------------------------------------------------------------
+# Segmented parallel repair: gate runs far enough apart are independent
+# (the reference's only engine parallelism is contigs, ntedit.cpp:2213-2250;
+# segment parallelism is the single-contig analogue and is exact — see the
+# overflow guard below).
+# ---------------------------------------------------------------------------
+
+
+def _gap_margin(cfg) -> tuple:
+    """(gap, margin): a gap of > ``gap`` gate-free heads between
+    consecutive gates means the dense pass proved the region clean against
+    ORIGINAL content; an edit's influence (content change + re-gate reach
+    + trial lookahead) cannot cross it, so the scan state on the far side
+    is exactly the fresh-seed state.  ``margin`` is the per-segment
+    activity bound checked by the overflow guard."""
+    gap = 4 * cfg.k + cfg.insertion_cap + cfg.max_deletions + 32
+    margin = gap - 2 * cfg.k - cfg.max_deletions - 2
+    return gap, margin
+
+
+def _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin):
+    """Closure running one segment: (lo, hi, abs_gates) -> (sb, nb) raw
+    arrays, "overflow" when activity reaches the right margin, or None on
+    engine failure."""
+
+    def run(lo: int, hi: int, seg_gates_abs: np.ndarray):
+        view = contig[lo:hi]
+        pristine = seq_bytes[lo:hi]
+        out = _run_raw(lib, view, pristine, seg_gates_abs - lo, bf_struct,
+                       rep_struct, params)
+        if out is None:
+            return None
+        sb, nb = out
+        # overflow guard: activity must stay left of the margin
+        limit = int(seg_gates_abs[-1]) - lo + margin
+        if len(sb) and int(sb[:, 0].max()) > limit:
+            return "overflow"
+        if len(nb):
+            last = nb[-1]
+            if not (last[0] == 0 and int(last[2]) == hi - lo - 1
+                    and int(last[1]) <= limit):
+                return "overflow"
+        return sb, nb
+
+    return run
+
+
+def _finish_segments(lib, header, seq_bytes, contig, all_gates, bf_struct,
+                     rep_struct, params, bounds, results):
+    """Handle overflow/failure fallbacks, then stitch segment results."""
+    L = len(seq_bytes)
+    if any(r is None for r in results):
+        return None
+    if any(isinstance(r, str) for r in results):
+        # pathological cascade: exact fallback to the sequential whole run
+        contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
+        out = _run_raw(lib, contig, seq_bytes, all_gates, bf_struct,
+                       rep_struct, params)
+        if out is None:
+            return None
+        return _result(header, contig, *out)
+
+    # stitch: inter-segment clean spans + per-segment node streams (writers
+    # merge coordinate-contiguous spans, so seam splits are render-equal)
+    subs = []
+    nodes = []
+    total = 0
+    cursor = 0
+    for (lo, hi), (sb, nb) in zip(bounds, results):
+        if lo > cursor:
+            nodes.append(["span", cursor, lo - 1, 0])
+            total += lo - cursor
+        subs.extend(_subs_of(sb, offset=lo))
+        total += _append_nodes(nodes, nb, offset=lo)
+        cursor = hi
+    if cursor < L:
+        nodes.append(["span", cursor, L - 1, 0])
+        total += L - cursor
+    return ContigResult(header, bytearray(contig.tobytes()), RopeCells(total, nodes), subs)
+
+
+def polish_contig_pipelined(
+    host_bloom,
+    host_bloomrep,
+    cfg: EngineConfig,
+    header: str,
+    seq: bytes | np.ndarray,
+    gate_chunks,
+    threads: int = 4,
+    collect_gates: Optional[list] = None,
+) -> Optional[ContigResult]:
+    """Segmented repair overlapped with the streaming dense pass.
+
+    ``gate_chunks`` yields (frontier, abs_gates) with every head <
+    frontier final (flag.iter_gate_chunks).  Segments whose closing quiet
+    gap is confirmed are submitted to the repair pool immediately, so the
+    host repairs chunk i while the device still computes chunk i+1's
+    gates.  Output is identical to the sequential scan.
+
+    ``collect_gates``: optional list the consumed gate arrays are appended
+    to, so a caller can reuse the dense pass as a hint if this engine
+    returns None after the stream was (partially) drained."""
+    if cfg.snv:
+        raise NotImplementedError("SNV mode is not ported yet (see ROADMAP.md)")
+    lib = get_lib()
+    bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
+    cfg = cfg.validate()
+    params = _params_of(cfg)
+    seq_bytes = bytes(seq)
+    L = len(seq_bytes)
+    gap, margin = _gap_margin(cfg)
+    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
+    runner = _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct,
+                         params, margin)
+
+    # closed segments accumulate into a bucket; one native call per bucket
+    # (few large calls, not thousands of tiny ones) sized so ~2 buckets per
+    # thread stay in flight against typical gate densities
+    bucket_budget = 16384
+    gbuf = np.empty(0, dtype=np.int64)  # gates not yet assigned to a segment
+    bucket = []                         # closed gate groups awaiting submit
+    bucket_n = 0
+    chunks = []                         # all gate arrays (fallback replay)
+    bounds = []
+    futures = []
+    with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
+
+        def submit_bucket():
+            nonlocal bucket, bucket_n
+            if not bucket:
+                return
+            bgates = np.concatenate(bucket)
+            lo = int(bgates[0])
+            hi = int(min(L, bgates[-1] + gap))
+            bounds.append((lo, hi))
+            futures.append(ex.submit(runner, lo, hi, bgates))
+            bucket = []
+            bucket_n = 0
+
+        for frontier, g in gate_chunks:
+            chunks.append(np.asarray(g, dtype=np.int64))
+            if collect_gates is not None:
+                collect_gates.append(chunks[-1])
+            gbuf = np.concatenate([gbuf, chunks[-1]])
+            if not len(gbuf):
+                continue
+            # close every group whose trailing quiet gap is confirmed:
+            # the group's last gate is > gap before the frontier AND > gap
+            # before the next group's first gate
+            groups = np.split(gbuf, np.nonzero(np.diff(gbuf) > gap)[0] + 1)
+            closed = list(groups[:-1])
+            last = groups[-1]
+            if len(last) and int(last[-1]) + gap < frontier:
+                closed.append(last)
+                gbuf = np.empty(0, dtype=np.int64)
+            else:
+                gbuf = last
+            for grp in closed:
+                bucket.append(grp)
+                bucket_n += len(grp)
+                if bucket_n >= bucket_budget:
+                    submit_bucket()
+        if len(gbuf):
+            bucket.append(gbuf)
+        submit_bucket()
+        results = [f.result() for f in futures]
+
+    all_gates = (
+        np.concatenate(chunks) if chunks else np.empty(0, dtype=np.int64)
+    )
+    if not len(all_gates):
+        return ContigResult(header, bytearray(seq_bytes), RopeCells(L), [])
+    return _finish_segments(
+        lib, header, seq_bytes, contig, all_gates, bf_struct, rep_struct,
+        params, bounds, results,
+    )
