@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (ntedit_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, as a user-sized run
+    python3 chip_smoke.py            # every phase, as a user-sized run (no options)
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
@@ -29,7 +29,6 @@ checkout of the repository, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -42,7 +41,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-PHASES = ("build", "kernel", "main", "counting", "numbers")
+GENOME = 50_000_000  # bases of the main-path draft and of the timed filters
+CBF_LENGTH = 4_700_000  # bases of the counting-filter contig
 IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
 
 
@@ -209,18 +209,18 @@ def check_kernel(seq_dev, n, df, snv, p) -> int:
     return int((got != want).sum())  # .sum() to the host synchronises
 
 
-def phase_kernel(device: str = "cuda") -> dict:
+def phase_kernel() -> dict:
     import torch
 
     from ntedit_tpu_torch.ops import gate_kernel
     from ntedit_tpu_torch.utils import simulate
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     truth = simulate.random_genome(40_000, seed=70)
     draft, _ = simulate.inject_errors(truth, sub_rate=3e-3, seed=71)
     draft = decorate(draft, rng, n_runs=4, n_iupac=40, lower=700)
-    n_cases = 0
+    n_cases = differing = 0
     bad = []
     for k in (17, 25, 40):
         for name, df, p in _filters_for(truth, k, dev):
@@ -232,11 +232,12 @@ def phase_kernel(device: str = "cuda") -> dict:
                 for snv in (False, True):
                     diff = check_kernel(seq_dev, n, df, snv, p)
                     n_cases += 1
+                    differing += diff
                     if diff:
                         bad.append({"k": k, "filter": name, "L": L, "snv": snv, "words": diff})
     if bad:
         raise AssertionError(f"gate kernel differs from its plain version: {bad}")
-    return {"phase": "kernel", "cases": n_cases, "bit_equal": True}
+    return {"phase": "kernel", "cases": n_cases, "differing_words": differing}
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +280,7 @@ def _same_outputs(a: str, b: str) -> dict:
 
 
 def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_args,
-                  cfg, device: str = "cuda") -> dict:
+                  cfg) -> dict:
     """Run the port's engine CLI and the host-only reference; compare."""
     from ntedit_tpu_torch import cli
     from ntedit_tpu_torch.core import bloom
@@ -293,7 +294,7 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_arg
     prefix = os.path.join(work, tag)
     gate_kernel.gate_words.launches = 0
     t0 = time.perf_counter()
-    cli.main(["engine", "-r", bf_path, "-f", draft_path, "-b", prefix, "--device", device,
+    cli.main(["engine", "-r", bf_path, "-f", draft_path, "-b", prefix, "--device", "cuda",
               *cli_args])
     wall = time.perf_counter() - t0
     launches = gate_kernel.gate_words.launches
@@ -315,12 +316,12 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_arg
            "byte_identical": same, "residual_vs_truth": resid}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
-    if device == "cuda" and launches <= 0:
+    if launches <= 0:
         raise AssertionError(f"{tag}: the gate kernel was never launched")
     return out
 
 
-def time_split(host_bf, draft_path: str, threads: int, device: str) -> dict:
+def time_split(host_bf, draft_path: str, threads: int) -> dict:
     """The main path's stages one at a time, none overlapped: read the
     draft, upload the filter, the gate pass of every contig, the threaded
     repair from those gates, and rendering the outputs."""
@@ -337,7 +338,7 @@ def time_split(host_bf, draft_path: str, threads: int, device: str) -> dict:
     recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
     out["read_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pol = Polisher(host_bf, None, cfg, device=device)
+    pol = Polisher(host_bf, None, cfg, device="cuda")
     out["filter_upload_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     hints = [pol.gate_positions(r.seq) for r in recs]
@@ -353,8 +354,7 @@ def time_split(host_bf, draft_path: str, threads: int, device: str) -> dict:
     for res in results:
         writers.write_contig(res, *sinks, {})
     out["render_s"] = time.perf_counter() - t0
-    if device == "cuda":
-        out.update(device_share(pol, recs))
+    out.update(device_share(pol, recs))
     return out
 
 
@@ -380,13 +380,12 @@ def device_share(pol, recs) -> dict:
             "device_top": sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]}
 
 
-def phase_main(work: str, scale: int, plain_scale: int, device: str = "cuda") -> list:
+def phase_main(work: str) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
 
     k = 25
-    f = scale / 50_000_000
-    lengths = [int(30_000_000 * f), int(15_000_000 * f), int(5_000_000 * f), 5_000, 60]
+    lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # GENOME + 5,060 bases
     t0 = time.perf_counter()
     truths, drafts = make_genome(lengths, seed=500)
     draft_path = os.path.join(work, "draft50.fa")
@@ -399,36 +398,26 @@ def phase_main(work: str, scale: int, plain_scale: int, device: str = "cuda") ->
         blk.insert_seq(t)
     build_s = time.perf_counter() - t0
     cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
-    out = [run_and_check("main_blocked", work, blk, draft_path, truths, ["-t", "8"], cfg, device)]
+    out = [run_and_check("main_blocked", work, blk, draft_path, truths, ["-t", "8"], cfg)]
     out[0].update(simulate_s=sim_s, filter_build_s=build_s, filter_bytes=blk.bytes,
-                  contigs=lengths, split=time_split(blk, draft_path, 8, device))
+                  contigs=lengths, split=time_split(blk, draft_path, 8))
     del blk
-    if plain_scale < scale:  # cut to the first contigs that fit plain_scale
-        keep, tot = [], 0
-        for i, L in enumerate(lengths):
-            if tot + L <= plain_scale or L < 100_000:
-                keep.append(i)
-                tot += L
-        truths = [truths[i] for i in keep]
-        drafts = [drafts[i] for i in keep]
-        draft_path = os.path.join(work, "draft_plain.fa")
-        write_fasta(draft_path, drafts)
-        n_kmers = sum(len(t) for t in truths)
     t0 = time.perf_counter()
     pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(n_kmers, 3, 0.001), 3, k)
     for t in truths:
         pl.insert_seq(t)
     build_s = time.perf_counter() - t0
-    out.append(run_and_check("main_plain", work, pl, draft_path, truths, ["-t", "8"], cfg, device))
+    out.append(run_and_check("main_plain", work, pl, draft_path, truths, ["-t", "8"], cfg))
     out[1].update(filter_build_s=build_s, filter_bytes=pl.bytes)
     return out
 
 
-def phase_counting(work: str, length: int = 4_700_000, device: str = "cuda") -> dict:
+def phase_counting(work: str) -> dict:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
 
     k = 25
+    length = CBF_LENGTH
     truths, drafts = make_genome([length], seed=900)
     draft_path = os.path.join(work, "draft_cbf.fa")
     write_fasta(draft_path, drafts)
@@ -441,7 +430,7 @@ def phase_counting(work: str, length: int = 4_700_000, device: str = "cuda") -> 
     fill_counts(cbf, drafts[0][: length // 2])
     cfg = EngineConfig(k=k, hash_num=3, threads=1, min_threshold=2, max_threshold=254).validate()
     return run_and_check("counting", work, cbf, draft_path, truths,
-                         ["-t", "8", "-p", "2", "-q", "254"], cfg, device)
+                         ["-t", "8", "-p", "2", "-q", "254"], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -493,10 +482,10 @@ def time_cuda(fn, reps: int, flush) -> float:
     return float(np.median(times))
 
 
-def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) -> dict:
+def phase_numbers(power: str) -> dict:
     """The gate pass at the main path's chunk shape (2^22 heads, k=25)
-    with the filters of a ``genome``-base assembly (256 MiB blocked at
-    50 Mbp), for the blocked, plain and counting layouts."""
+    with the filters of a 50 Mbp assembly (256 MiB blocked), for the
+    blocked, plain and counting layouts."""
     import torch
 
     from ntedit_tpu_torch.core import bloom
@@ -504,7 +493,7 @@ def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) ->
     from ntedit_tpu_torch.ops import gate_kernel
     from ntedit_tpu_torch.utils import simulate
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     k = 25
     n = flag.DEFAULT_CHUNK
     L = n + k - 1
@@ -515,10 +504,10 @@ def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) ->
     buf[:L] = torch.from_numpy(draft.copy())
     seq_dev = buf.to(dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
-    plain_bytes = bloom.bf_size_bytes(genome, 3, 0.001)
+    plain_bytes = bloom.bf_size_bytes(GENOME, 3, 0.001)
     filters = {
         "blocked": bloom.BlockedKmerBloomFilter.zeros(
-            bloom.pow2_size_bytes(genome, 3, 0.001), 3, k),
+            bloom.pow2_size_bytes(GENOME, 3, 0.001), 3, k),
         "plain": bloom.KmerBloomFilter.zeros(plain_bytes, 3, k),
         "counting": bloom.KmerCountingBloomFilter8.zeros(8 * plain_bytes, 3, k),
     }
@@ -539,9 +528,9 @@ def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) ->
             arr[fill] |= (1 << rng.integers(0, 8 * arr.itemsize, size=fill.size)).astype(arr.dtype)
         df = bloom.DeviceFilter.from_host(hf, dev)
         p = 3 if name == "counting" else 1
-        diff = check_kernel(seq_dev, n, df, False, p)
         got = gate_kernel.gate_words(seq_dev, n, df, False, p)
         want = gate_kernel.gate_words_plain(seq_dev, n, df, False, p)
+        diff = int((got != want).sum())
         err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
         if diff or err:
             raise AssertionError(f"{name}: kernel differs from plain at the chunk shape")
@@ -557,7 +546,8 @@ def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) ->
         take_ms = time_cuda(lambda: torch.take(table, idx), 10, flush)
         rows[name] = {"heads": n, "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms,
                       "sectors": sectors, "bytes": nbytes,
-                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": err,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "differing_words": diff, "max_abs_err": err,
                       "filter_bytes": hf.bytes}
         del df, table, idx
         torch.cuda.empty_cache()
@@ -567,19 +557,7 @@ def phase_numbers(power: str, device: str = "cuda", genome: int = 50_000_000) ->
 
 # ---------------------------------------------------------------------------
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
-    ap.add_argument("--scale", type=int, default=50_000_000,
-                    help="bases of the main-path draft [50 Mbp]")
-    ap.add_argument("--plain-scale", type=int, default=50_000_000,
-                    help="bases of the plain-filter run [50 Mbp]")
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    if unknown := set(phases) - set(PHASES):
-        ap.error(f"unknown phases {sorted(unknown)}")
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -592,48 +570,44 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
         return 2
-    from ntedit_tpu_torch.ops import gate_kernel
 
     smi = nvidia_smi()
     print(smi, flush=True)
     power = smi.split(",")[-1].strip()
     t_start = time.perf_counter()
     emit(phase_build())
-    if "kernel" in phases:
-        emit(phase_kernel())
+    kernel = phase_kernel()
+    emit(kernel)
     main_rows = []
     with tempfile.TemporaryDirectory(prefix="ntedit_smoke_") as work:
-        if "main" in phases:
-            torch.cuda.reset_peak_memory_stats()
-            for row in phase_main(work, args.scale, args.plain_scale):
-                row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-                main_rows.append(row)
-                emit(row)
-        if "counting" in phases:
-            row = phase_counting(work)
+        torch.cuda.reset_peak_memory_stats()
+        for row in phase_main(work):
+            row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             main_rows.append(row)
             emit(row)
-    numbers = None
-    if "numbers" in phases:
-        torch.cuda.reset_peak_memory_stats()
-        numbers = phase_numbers(power)
-        emit(numbers)
-    blk = numbers["layouts"]["blocked"] if numbers else {}
-    main_launches = main_rows[0]["launches"] if main_rows else 0
+        row = phase_counting(work)
+        main_rows.append(row)
+        emit(row)
+    torch.cuda.reset_peak_memory_stats()
+    numbers = phase_numbers(power)
+    emit(numbers)
+    blk = numbers["layouts"]["blocked"]
+    differing = kernel["differing_words"] + sum(
+        r["differing_words"] for r in numbers["layouts"].values())
     emit({"kernels": [{
         "name": "gate_words",
         "route": "cuda",
         "source": "ntedit_tpu_torch/csrc/gate_kernel.cu",
         "replaces": "ntedit_tpu/ops/flag_kernel.py:86",
-        "launches": main_launches,
-        "matches_plain": True,
-        "max_abs_err": blk.get("max_abs_err"),
-        "ms": blk.get("ms"),
-        "plain_ms": blk.get("plain_ms"),
-        "bound_ms": blk.get("bound_ms"),
+        "launches": main_rows[0]["launches"],
+        "matches_plain": differing == 0,
+        "max_abs_err": blk["max_abs_err"],
+        "ms": blk["ms"],
+        "plain_ms": blk["plain_ms"],
+        "bound_ms": blk["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "take_ms": blk.get("take_ms"),
+        "take_ms": blk["take_ms"],
     }], "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

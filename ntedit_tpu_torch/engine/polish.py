@@ -45,7 +45,6 @@ class Polisher:
         host_bloomrep=None,
         cfg: Optional[EngineConfig] = None,
         chunk: int = flag.DEFAULT_CHUNK,
-        engine: str = "pipelined",
         device=None,
     ):
         self.device = resolve_device(device)
@@ -54,8 +53,6 @@ class Polisher:
         if cfg.k == 0:
             cfg = dataclasses.replace(cfg, k=host_bloom.k, hash_num=host_bloom.hash_num)
         self.cfg = cfg.validate()
-        if engine != "pipelined":
-            raise NotImplementedError(f"the {engine!r} engine {NOT_PORTED}")
         if self.cfg.snv:
             raise NotImplementedError(f"SNV mode (-s 1) {NOT_PORTED}")
         if self.cfg.verbose:
@@ -94,7 +91,9 @@ class Polisher:
         res = native_repair.polish_contig_native(
             self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint)
         if res is None:
-            raise RuntimeError(f"native repair engine failed on contig {header!r}")
+            # the JAX package falls back to its wavefront engine here
+            raise NotImplementedError(
+                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
         return res
 
     def polish(

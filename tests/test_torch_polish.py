@@ -145,11 +145,18 @@ def test_replay_when_the_stream_engine_fails(monkeypatch):
     assert render(twriters, got) == render(jwriters, want)
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(monkeypatch):
+    """-s 1 and -v raise, and so does a failed native repair, where the
+    JAX package would fall back to its wavefront engine."""
+    from ntedit_tpu_torch.engine import native_repair
+
     f = jbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, K)
     tf, _ = convert.filter_from_numpy("blocked", f.words, 3, K, device="cpu")
     for kw in (dict(snv=True), dict(verbose=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TPolisher(tf, None, TConfig(k=K, hash_num=3, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPolisher(tf, None, TConfig(k=K, hash_num=3), engine="wavefront", device="cpu")
+    monkeypatch.setattr(native_repair, "polish_contig_pipelined", lambda *a, **kw: None)
+    monkeypatch.setattr(native_repair, "polish_contig_native", lambda *a, **kw: None)
+    pol = TPolisher(tf, None, TConfig(k=K, hash_num=3), device="cpu")
+    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
+        pol.polish_contig("c", simulate.random_genome(2000, seed=5))
