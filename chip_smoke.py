@@ -7,10 +7,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build    - builds the CUDA gate kernel (nvcc) and the host repair
               library (g++) from the sources in this checkout, side by side.
+   Then the kernels' registers, shared memory and spills (nvcc -Xptxas -v)
+   and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 2. kernel   - the gate kernel against its plain torch version on the card,
               bit for bit: blocked, plain (hash_num 3 and 4) and counting
-              (-p 1 and 3) filters, k in {17, 25, 40}, snv on and off, on a
-              draft with N runs, IUPAC and lowercase bytes and a ragged tail.
+              (-p 1 and 3) filters, k in {1, 17, 25, 33, 34, 40, 1025}, snv
+              on and off, on a draft with N runs, IUPAC and lowercase bytes;
+              ragged tails, n in {1, 31, 32, 33} and at a tile boundary +-1;
+              and a plain filter of 8e9 bits (above 2^32, not 2^n).
 3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process) on a
               seeded 50 Mbp draft with a 256 MiB blocked filter, then with a
               btllib-sized plain filter; the three output files must equal,
@@ -19,8 +23,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
 4. counting - the same check with a count-min filter and -p 2 -q 254.
 5. numbers  - the gate pass alone at the main path's chunk shape (CUDA
               events, L2 flushed between launches), its plain version, a
-              torch.take gather of as many random words as a yardstick, and
-              the least time the card could take for the same bytes.
+              torch.take gather of as many random words as a yardstick, the
+              least time the card could take for the same bytes, and the
+              random-probe floor: a probe-only kernel making as many random
+              probes of the same table with the same loads in flight.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -173,6 +180,54 @@ def phase_build() -> dict:
     return {"phase": "build", **times, "device": torch.cuda.get_device_name(0)}
 
 
+_FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked",
+          "gate_words_kernelILi2E": "counting", "probe_floor_kernelIjE": "floor_words",
+          "probe_floor_kernelIhE": "floor_counters"}
+
+
+def ptxas_resources(log: str) -> dict:
+    """Registers, shared memory, stack and spills per kernel form from
+    nvcc's ``-Xptxas -v`` output."""
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(next((v for k, v in _FORMS.items() if k in m.group(1)),
+                                      m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_bytes"] = int(m.group(1))
+    return out
+
+
+def phase_resources() -> dict:
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    res = ptxas_resources(gate_kernel.build_log())
+    for form, blocks in gate_kernel.occupancy().items():
+        res.setdefault(form, {})["blocks_per_sm"] = blocks
+    spilled = {f: r for f, r in res.items() if r.get("spill_stores") or r.get("spill_loads")}
+    if any(r.get("blocks_per_sm", 0) <= 0 for r in res.values()):
+        raise RuntimeError(f"a kernel form cannot be resident: {res}")
+    return {"phase": "kernel_resources", "forms": res, "spills": bool(spilled),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "threads_per_block": gate_kernel.TILE // 32}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel against plain version
 # ---------------------------------------------------------------------------
@@ -209,9 +264,23 @@ def check_kernel(seq_dev, n, df, snv, p) -> int:
     return int((got != want).sum())  # .sum() to the host synchronises
 
 
+def _kernel_lengths(k: int, full: int) -> list:
+    """Window-stream lengths L (n = L - k + 1 heads) checked at one k: the
+    whole draft, a ragged tail past one tile, a short contig and, at
+    k = 25 and 34, n = 1, 31, 32, 33 and n at a tile boundary +-1."""
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    out = [full, gate_kernel.TILE + k - 1 + 77, k + 30]
+    if k in (25, 34):
+        t = gate_kernel.TILE
+        out += [n + k - 1 for n in (1, 31, 32, 33, t - 1, t, t + 1)]
+    return out
+
+
 def phase_kernel() -> dict:
     import torch
 
+    from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.ops import gate_kernel
     from ntedit_tpu_torch.utils import simulate
 
@@ -222,9 +291,11 @@ def phase_kernel() -> dict:
     draft = decorate(draft, rng, n_runs=4, n_iupac=40, lower=700)
     n_cases = differing = 0
     bad = []
-    for k in (17, 25, 40):
-        for name, df, p in _filters_for(truth, k, dev):
-            for L in (len(draft), 8192 + k - 1 + 77, k + 30):  # ragged tails
+
+    def check_all(k, filters, lengths):
+        nonlocal n_cases, differing
+        for name, df, p in filters:
+            for L in lengths:
                 n = L - k + 1
                 buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
                 buf[:L] = torch.from_numpy(draft[:L].copy())
@@ -235,6 +306,19 @@ def phase_kernel() -> dict:
                     differing += diff
                     if diff:
                         bad.append({"k": k, "filter": name, "L": L, "snv": snv, "words": diff})
+
+    # k = 1; 33 and 34 cross the 33-bit half of srol; the largest k taken
+    for k in (1, 17, 25, 33, 34, 40, gate_kernel.MAX_K):
+        check_all(k, _filters_for(truth, k, dev), _kernel_lengths(k, len(draft)))
+    # a plain filter above 2^32 bits, not a power of two: about half of
+    # its indices need the modulo's upper 32 bits
+    big = bloom.KmerBloomFilter.zeros(1_000_000_004, 3, 25)
+    big.insert_seq(truth)
+    big_df = bloom.DeviceFilter.from_host(big, dev)
+    del big
+    check_all(25, [("plain_8e9_bits", big_df, 1)], [len(draft)])
+    del big_df
+    torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"gate kernel differs from its plain version: {bad}")
     return {"phase": "kernel", "cases": n_cases, "differing_words": differing}
@@ -437,32 +521,36 @@ def phase_counting(work: str) -> dict:
 # phase 5: numbers
 # ---------------------------------------------------------------------------
 
-def probed_sectors(seq_dev, n: int, df, snv: bool) -> int:
-    """Distinct 32-byte DRAM sectors the gate pass must read from the
-    filter for these heads: the valid, unforced windows, each probe in the
-    kernel's order (plain and counting stop at the first deciding probe)."""
+def probed_sectors(seq_dev, n: int, df) -> tuple:
+    """(least, issued, live heads): distinct 32-byte DRAM sectors of the
+    filter that the gate pass must read for these heads (the valid,
+    unforced windows, the plain layout stopping at its first clear bit),
+    the distinct sectors the kernel reads (every probe of every live
+    head), and the number of live heads."""
     import torch
 
     from ntedit_tpu_torch.core import nthash as nt
     from ntedit_tpu_torch.ops import gate_kernel
 
-    if snv:
-        return 0
     s = seq_dev[: n + df.k - 1]
     valid, iupac = gate_kernel.window_flags(s, n, df.k)
     live = valid & ~iupac
+    n_live = int(live.sum())
     can = nt.canonical(*nt.window_hashes(s, df.k))
     if df.blocked:
-        return int(torch.unique(((can & (df.modulus - 1)) >> 3)[live]).numel())
-    sectors = []
+        least = int(torch.unique(((can & (df.modulus - 1)) >> 3)[live]).numel())
+        return least, least, n_live
+    shift = 5 if df.counting else 8  # 32 counters or 256 bits per sector
+    least, issued = [], []
+    still = live
     for h in nt.extend(can, df.k, df.hash_num):
         idx = nt.umod(h, df.modulus)
-        if df.counting:
-            sectors.append((idx >> 5)[live])  # every counter is read
-            continue
-        sectors.append((idx >> 8)[live])
-        live = live & (((df.table[idx >> 5].long() & 0xFFFFFFFF) >> (idx & 31)) & 1 == 1)
-    return int(torch.unique(torch.cat(sectors)).numel())
+        issued.append((idx >> shift)[live])
+        least.append((idx >> shift)[still])
+        if not df.counting:  # every counter is read; plain stops at a clear bit
+            still = still & (((df.table[idx >> 5].long() & 0xFFFFFFFF) >> (idx & 31)) & 1 == 1)
+    return (int(torch.unique(torch.cat(least)).numel()),
+            int(torch.unique(torch.cat(issued)).numel()), n_live)
 
 
 def time_cuda(fn, reps: int, flush) -> float:
@@ -539,14 +627,29 @@ def phase_numbers(power: str) -> dict:
         gate_kernel.gate_words.launches = before  # timing launches are not the path's
         plain_ms = time_cuda(lambda: gate_kernel.gate_words_plain(seq_dev, n, df, False, p),
                              3, flush)
-        sectors = probed_sectors(seq_dev, n, df, False)
+        sectors, sectors_issued, live = probed_sectors(seq_dev, n, df)
         nbytes = L + 4 * (-(-n // 32)) + 32 * sectors
         table = df.table
+        # the floor: as many random probes of this table as the kernel
+        # issues, from as many threads, checked against its Python version
+        probes = live * (1 if df.blocked else df.hash_num)
+        threads = -(-n // 32)
+        floor_words = gate_kernel.probe_floor(table, probes, threads).cpu().numpy()
+        host_table = table.cpu().numpy()
+        for tid in (0, threads // 2, threads - 1):
+            want_word = gate_kernel.probe_floor_word(host_table, probes, threads, tid)
+            if int(floor_words[tid]) & 0xFFFFFFFF != want_word:
+                raise AssertionError(f"{name}: probe floor word {tid} differs from its plain version")
+        del host_table
+        floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads), 20, flush)
         idx = torch.randint(0, table.numel(), (n,), device=dev)
         take_ms = time_cuda(lambda: torch.take(table, idx), 10, flush)
-        rows[name] = {"heads": n, "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms,
-                      "sectors": sectors, "bytes": nbytes,
-                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"heads": n, "live_heads": live, "probes": probes,
+                      "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms, "floor_ms": floor_ms,
+                      "sectors": sectors, "extra_sectors": sectors_issued - sectors,
+                      "bytes": nbytes, "bound_ms": bound_ms,
+                      "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
                       "differing_words": diff, "max_abs_err": err,
                       "filter_bytes": hf.bytes}
         del df, table, idx
@@ -576,6 +679,7 @@ def main() -> int:
     power = smi.split(",")[-1].strip()
     t_start = time.perf_counter()
     emit(phase_build())
+    emit(phase_resources())
     kernel = phase_kernel()
     emit(kernel)
     main_rows = []
@@ -608,6 +712,10 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "take_ms": blk["take_ms"],
+        "floor_ms": blk["floor_ms"],
+        "layouts": {name: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
+                                                   "plain_ms", "extra_sectors")}
+                    for name, r in numbers["layouts"].items()},
     }], "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,45 +10,68 @@
 //     minimum (core/nthash_ref.py);
 //   * the Bloom probe, in one of three layouts (core/bloom.py):
 //       blocked  - word can & (nw-1), mask of hash_num 5-bit fields above;
-//       plain    - hash_num NTM64-extended hashes, each % bits, bit idx&31
+//       plain    - hash_num NTM64-extended hashes, each mod bits, bit idx&31
 //                  of little-endian word idx>>5;
-//       counting - minimum of counters[h % cbytes] over the hashes;
+//       counting - minimum of counters[h mod counters] over the hashes;
 //   * gate = valid & (snv | !present | low_count | has_iupac), where
 //     valid = every byte of the window passes isAcceptedBase (case-folded)
 //     and has_iupac = some byte is accepted but not ACGTacgt (the JAX
 //     package force-hints those windows on the host instead);
 //   * the pack of 32 gates into one little-endian uint32 word.
 //
-// Design.  One thread owns 32 consecutive heads and writes one word: it
-// hashes its first window directly (k steps), then rolls the next 31
-// (fh' = srol(fh) ^ srol^k(seed(out)) ^ seed(in),
-//  rh' = sror(rh ^ cseed(out) ^ srol^k(cseed(in)))), keeping running counts of
-// unaccepted and IUPAC bytes for the validity and IUPAC terms.  A block of
-// 256 threads covers 8192 heads; it first copies its 8192 ASCII bytes plus
-// a 1024-byte halo into shared memory with coalesced 16-byte loads, so
-// k may be at most 1025.  Seeds and their srol^k rotations come from
-// 256-entry tables in shared memory.  A window that is invalid, or whose
-// gate is already forced (snv, IUPAC), is not probed.
-//
 // Bound.  Each probe is a random read from a filter far larger than the
-// 50 MB L2, so it costs one 32-byte DRAM sector per probed word (blocked:
-// one per valid head; plain and counting: up to hash_num).  Beside that
-// the pass reads 1 B of ASCII per head and writes 1/8 B per head.  At
-// 3.35 TB/s the blocked layout's floor is about 33 B per head.  What the
-// design does about it: the gather sits in the kernel (no index or mask
-// arrays go through device memory, unlike the TPU version), plain probes
-// stop at the first clear bit, and many threads each keep a probe in
-// flight to cover DRAM latency.  Faster forms (TMA, more loads in flight
-// per thread) are later work.
+// 50 MB L2: one 32-byte DRAM sector per probed word (blocked: one per live
+// head; plain and counting: hash_num).  Beside that the pass reads 1 B of
+// ASCII per head and writes 1/8 B per head, so it is bound by the card's
+// rate of random sectors, not by its bytes per second or its integer
+// throughput.  What matters is how many probes are in flight at once.
+//
+// Design.  One thread owns 32 consecutive heads and writes their gate word
+// (a warp's lanes own consecutive words, so no cross-lane pack is needed).
+// A block of 256 threads covers an 8192-head tile and copies its ASCII
+// bytes, plus the k-1 bytes past it (at most a 1024-byte halo, so k <= 1025),
+// into shared memory.  The thread hashes its first window directly (k
+// steps), then works through its heads in batches of kBatch:
+//
+//   1. hash: roll kBatch heads into registers (canonical hash, a live mask
+//      of the windows to probe, a mask of the windows whose gate is forced
+//      by snv or IUPAC).  A roll step is fh' = srol(fh) ^ F[out][in],
+//      rh' = sror(rh ^ R[out][in]) with 16-entry tables in shared memory
+//      indexed by the 2-bit codes of the bytes leaving and entering the
+//      window; their values are right for ACGTacgt, and any other byte makes
+//      the window invalid or forced, so its hash is never used.
+//   2. probe: issue every probe of the batch as an independent predicated
+//      ld.global.nc (no branch, no early stop), kBatch loads in flight per
+//      thread; plain and counting issue their hash_num rounds back to back.
+//   3. gate: fold the loaded words into the batch's gate bits.
+//
+// The plain and counting layouts reduce a 64-bit hash modulo the filter
+// size with a multiply by a reciprocal computed on the host (fastmod below,
+// ops/gate_kernel.py::mod_magic) instead of a 64-bit '%'.  The blocked
+// layout keeps its power-of-two mask.  The shared-memory tile has a row
+// pitch of 36 bytes per thread's 32: lanes t..t+31 reading the same
+// offset of their rows hit 32 distinct banks.  __launch_bounds__ caps the
+// registers so that 4 blocks (1024 threads) stay resident per SM: a
+// 2^22-head chunk is 512 blocks, one wave on the 132 SMs.  Every index is
+// 64-bit.
+//
+// probe_floor_kernel, below, is a measuring stick and not on any path: the
+// same number of threads each making the same number of random probes of
+// the same table with kBatch loads in flight, and nothing else.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = kThreads * 32;  // heads per block
-constexpr int kHalo = 1024;           // bytes read past the tile
+constexpr int kThreads = 256;               // threads per block
+constexpr int kHeads = 32;                  // heads per thread: one gate word
+constexpr int kTile = kThreads * kHeads;    // heads per block
+constexpr int kHalo = 1024;                 // bytes a block may read past its tile
+constexpr int kBatch = 8;                   // heads hashed before their probes issue
+constexpr int kRowStride = 36;              // shared bytes per thread's 32 (9 words: odd)
+constexpr int kRows = (kTile + kHalo) / kHeads;
+constexpr int kMinBlocks = 4;               // resident blocks per SM to fit in registers
 
 constexpr uint64_t kSeedA = 0x3C8BFBB395C60474ULL;
 constexpr uint64_t kSeedC = 0x3193C18562A02B4CULL;
@@ -88,27 +111,27 @@ __device__ uint64_t srol(uint64_t x, unsigned d)
 	return (hi << 33) | lo;
 }
 
-// forward seed: ACGT/acgt only (case-folded), 0 for every other byte
-__device__ uint64_t seed_of(unsigned c)
+// 2-bit code of a byte: A/a 0, C/c 1, T/t 2, G/g 3 (other bytes alias)
+__device__ __forceinline__ unsigned code_of(unsigned c) { return (c >> 1) & 3; }
+
+// forward seed and complement seed of a code (btllib's SEED_TAB)
+__device__ uint64_t fwd_seed(unsigned code)
 {
-	switch (c & 0xDF) {
-	case 'A': return kSeedA;
-	case 'C': return kSeedC;
-	case 'G': return kSeedG;
-	case 'T': return kSeedT;
-	default: return 0;
+	switch (code & 3) {
+	case 0: return kSeedA;
+	case 1: return kSeedC;
+	case 2: return kSeedT;
+	default: return kSeedG;
 	}
 }
 
-// complement seed: btllib's SEED_TAB[c & 7], IUPAC aliasing included
-__device__ uint64_t cseed_of(unsigned c)
+__device__ uint64_t rev_seed(unsigned code)
 {
-	switch (c & 7) {
-	case 1: return kSeedT;
-	case 3: return kSeedG;
-	case 4: return kSeedA;
-	case 7: return kSeedC;
-	default: return 0;
+	switch (code & 3) {
+	case 0: return kSeedT;
+	case 1: return kSeedG;
+	case 2: return kSeedA;
+	default: return kSeedC;
 	}
 }
 
@@ -121,106 +144,243 @@ __device__ uint8_t byte_class(unsigned c)
 	return accepted ? (acgt ? 0 : 2) : 1;
 }
 
-__device__ __forceinline__ uint64_t extended(uint64_t can, int k, int j)
+// x mod m for any 64-bit x, given magic = floor((2^64 - 1) / m): the
+// estimate q = floor(x * magic / 2^64) is floor(x / m) or one less, so one
+// correction step gives the exact remainder (ops/gate_kernel.py::mod_by_magic)
+__device__ __forceinline__ uint64_t fastmod(uint64_t x, uint64_t m, uint64_t magic)
 {
-	if (j == 0)
-		return can;
-	uint64_t t = can * ((uint64_t)j ^ ((uint64_t)k * kMultiSeed));
+	const uint64_t r = x - __umul64hi(x, magic) * m;
+	return r >= m ? r - m : r;
+}
+
+// NTM64 extension: hash j of a canonical hash (j > 0)
+__device__ __forceinline__ uint64_t extended(uint64_t can, uint64_t mult)
+{
+	const uint64_t t = can * mult;
 	return t ^ (t >> kMultiShift);
 }
 
-// true when the k-mer with canonical hash ``can`` fails the filter's test:
-// absent, or (counting) below min_threshold
-__device__ bool fails_filter(uint64_t can, int k, const void* table, uint64_t modulus,
-                             int wbits, int layout, int hash_num, int min_threshold)
+// *p through the read-only path when pred, else dflt; predicated, not
+// branched, so a batch of them issues back to back
+__device__ __forceinline__ uint32_t load_if(const uint32_t* p, uint32_t pred, uint32_t dflt)
 {
-	if (layout == kBlocked) {
-		const uint32_t* words = static_cast<const uint32_t*>(table);
-		uint32_t mask = 0;
-		for (int j = 0; j < hash_num; ++j)
-			mask |= 1u << ((can >> (wbits + 5 * j)) & 31);
-		return (__ldg(words + (can & (modulus - 1))) & mask) != mask;
-	}
-	if (layout == kPlain) {
-		const uint32_t* words = static_cast<const uint32_t*>(table);
-		for (int j = 0; j < hash_num; ++j) {
-			uint64_t idx = extended(can, k, j) % modulus;
-			if (!((__ldg(words + (idx >> 5)) >> (idx & 31)) & 1))
-				return true;
-		}
-		return false;
-	}
-	const uint8_t* counters = static_cast<const uint8_t*>(table);
-	unsigned cnt = 255;
-	for (int j = 0; j < hash_num; ++j) {
-		unsigned got = __ldg(counters + extended(can, k, j) % modulus);
-		cnt = got < cnt ? got : cnt;
-	}
-	return cnt == 0 || (min_threshold > 1 && cnt < (unsigned)min_threshold);
+	uint32_t v = dflt;
+	asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.u32 %0, [%1];\n\t}"
+	    : "+r"(v) : "l"(p), "r"(pred));
+	return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, int k,
-                  const void* __restrict__ table, uint64_t modulus, int wbits,
-                  int layout, int hash_num, int snv, int min_threshold,
+__device__ __forceinline__ uint32_t load_if(const uint8_t* p, uint32_t pred, uint32_t dflt)
+{
+	uint32_t v = dflt;
+	asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.u8 %0, [%1];\n\t}"
+	    : "+r"(v) : "l"(p), "r"(pred));
+	return v;
+}
+
+struct Filter {
+	const void* table;
+	uint64_t modulus;  // words (blocked), bits (plain) or counters
+	uint64_t magic;    // mod_magic(modulus), plain and counting
+	int wbits;         // log2(words), blocked
+	int hash_num;
+	int k;
+	int min_threshold;
+};
+
+// bit i set when head i of the batch fails the filter: absent, or
+// (counting) below min_threshold.  Only heads in ``live`` are probed.
+template <int L>
+__device__ __forceinline__ uint32_t probe_batch(const uint64_t (&can)[kBatch], uint32_t live,
+                                                const Filter& f)
+{
+	if (L == kBlocked) {
+		const uint32_t* words = static_cast<const uint32_t*>(f.table);
+		uint32_t want[kBatch], got[kBatch];
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i) {
+			uint32_t mask = 0;
+			for (int j = 0; j < f.hash_num; ++j)
+				mask |= 1u << ((can[i] >> (f.wbits + 5 * j)) & 31);
+			want[i] = mask;
+			got[i] = load_if(words + (can[i] & (f.modulus - 1)), (live >> i) & 1, 0);
+		}
+		uint32_t fail = 0;
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i)
+			fail |= (uint32_t)((got[i] & want[i]) != want[i]) << i;
+		return fail & live;
+	}
+	if (L == kPlain) {
+		const uint32_t* words = static_cast<const uint32_t*>(f.table);
+		uint32_t present = live;
+		for (int j = 0; j < f.hash_num; ++j) {
+			const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
+			uint32_t got[kBatch], bit[kBatch];
+#pragma unroll
+			for (int i = 0; i < kBatch; ++i) {
+				const uint64_t h = j ? extended(can[i], mult) : can[i];
+				const uint64_t idx = fastmod(h, f.modulus, f.magic);
+				bit[i] = (uint32_t)idx & 31;
+				got[i] = load_if(words + (idx >> 5), (live >> i) & 1, ~0u);
+			}
+#pragma unroll
+			for (int i = 0; i < kBatch; ++i)
+				present &= ~((((~got[i]) >> bit[i]) & 1) << i);
+		}
+		return live & ~present;
+	}
+	const uint8_t* counters = static_cast<const uint8_t*>(f.table);
+	uint32_t cnt[kBatch / 4];  // the running minima, four 8-bit lanes a word
+#pragma unroll
+	for (int q = 0; q < kBatch / 4; ++q)
+		cnt[q] = ~0u;
+	for (int j = 0; j < f.hash_num; ++j) {
+		const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
+		uint32_t got[kBatch];
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i) {
+			const uint64_t h = j ? extended(can[i], mult) : can[i];
+			got[i] = load_if(counters + fastmod(h, f.modulus, f.magic), (live >> i) & 1, 255);
+		}
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i) {
+			const int lane = 8 * (i & 3);
+			cnt[i >> 2] = __vminu4(cnt[i >> 2], (got[i] << lane) | ~(0xFFu << lane));
+		}
+	}
+	uint32_t fail = 0;
+#pragma unroll
+	for (int i = 0; i < kBatch; ++i) {
+		const uint32_t c = (cnt[i >> 2] >> (8 * (i & 3))) & 0xFF;
+		fail |= (uint32_t)(c == 0 || (f.min_threshold > 1 && c < (uint32_t)f.min_threshold)) << i;
+	}
+	return fail & live;
+}
+
+// byte p of a thread's window stream: row (p / 32) past its own, column p % 32
+__device__ __forceinline__ unsigned tile_byte(const uint8_t* row, int p)
+{
+	return row[(p >> 5) * kRowStride + (p & 31)];
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv,
                   uint32_t* __restrict__ out, uint64_t n_words)
 {
-	__shared__ __align__(16) uint8_t tile[kTile + kHalo];
-	__shared__ uint64_t fseed[256], cseed[256], fseed_k[256], cseed_k[256];
+	__shared__ __align__(16) uint8_t tile[kRows * kRowStride];
+	__shared__ uint64_t roll_f[16], roll_r[16], seed_f[4], seed_r[4];
 	__shared__ uint8_t cls[256];
+	static_assert(kThreads == 256, "one thread per byte class");
 
+	const int k = f.k;
 	const unsigned t = threadIdx.x;
-	fseed[t] = seed_of(t);
-	cseed[t] = cseed_of(t);
-	fseed_k[t] = srol(fseed[t], k);
-	cseed_k[t] = srol(cseed[t], k);
 	cls[t] = byte_class(t);
+	if (t < 16) {
+		roll_f[t] = srol(fwd_seed(t >> 2), k) ^ fwd_seed(t);
+		roll_r[t] = rev_seed(t >> 2) ^ srol(rev_seed(t), k);
+	}
+	if (t < 4) {
+		seed_f[t] = fwd_seed(t);
+		seed_r[t] = rev_seed(t);
+	}
 
+	// rows holding bytes [0, kTile + k - 1) of the block; 16-byte loads,
+	// four 4-byte stores each (a row's pitch is 36 bytes)
 	const uint64_t block_head = (uint64_t)blockIdx.x * kTile;
+	const int rows = kThreads + (kHeads - 2 + k) / kHeads;
 	const uint4* src = reinterpret_cast<const uint4*>(seq + block_head);
-	uint4* dst = reinterpret_cast<uint4*>(tile);
-	for (unsigned i = t; i < (kTile + kHalo) / 16; i += kThreads)
-		dst[i] = src[i];
+	for (int u = t; u < 2 * rows; u += kThreads) {
+		const uint4 v = src[u];
+		uint32_t* dst = reinterpret_cast<uint32_t*>(tile + (u >> 1) * kRowStride + (u & 1) * 16);
+		dst[0] = v.x;
+		dst[1] = v.y;
+		dst[2] = v.z;
+		dst[3] = v.w;
+	}
 	__syncthreads();
 
 	const uint64_t word = (uint64_t)blockIdx.x * kThreads + t;
 	if (word >= n_words)
 		return;
-	const uint64_t head0 = word * 32;
-	const uint8_t* s = tile + t * 32;
+	const uint64_t head0 = word * kHeads;
+	const uint64_t left = n - head0;
+	const int heads = left < kHeads ? (int)left : kHeads;  // heads of this word below n
+	const uint8_t* row = tile + t * kRowStride;
 
 	uint64_t fh = 0, rh = 0;
 	int bad = 0, iupac = 0;
 	for (int i = 0; i < k; ++i) {
-		unsigned c = s[i];
-		fh = srol1(fh) ^ fseed[c];
+		const unsigned c = tile_byte(row, i);
+		fh = srol1(fh) ^ seed_f[code_of(c)];
 		bad += cls[c] & 1;
 		iupac += cls[c] >> 1;
 	}
 	for (int i = k - 1; i >= 0; --i)
-		rh = srol1(rh) ^ cseed[s[i]];
+		rh = srol1(rh) ^ seed_r[code_of(tile_byte(row, i))];
 
 	uint32_t bits = 0;
-	for (int j = 0; j < 32 && head0 + j < n; ++j) {
-		if (j > 0) {
-			unsigned c_out = s[j - 1], c_in = s[j - 1 + k];
-			fh = srol1(fh) ^ fseed_k[c_out] ^ fseed[c_in];
-			rh = sror1(rh ^ cseed[c_out] ^ cseed_k[c_in]);
-			bad += (cls[c_in] & 1) - (cls[c_out] & 1);
-			iupac += (cls[c_in] >> 1) - (cls[c_out] >> 1);
+#pragma unroll
+	for (int b0 = 0; b0 < kHeads; b0 += kBatch) {
+		uint64_t can[kBatch];
+		uint32_t live = 0, forced = 0;
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i) {
+			const int j = b0 + i;
+			if (j > 0) {
+				const unsigned c_out = row[j - 1], c_in = tile_byte(row, j - 1 + k);
+				const unsigned x = code_of(c_out) * 4 + code_of(c_in);
+				fh = srol1(fh) ^ roll_f[x];
+				rh = sror1(rh ^ roll_r[x]);
+				bad += (cls[c_in] & 1) - (cls[c_out] & 1);
+				iupac += (cls[c_in] >> 1) - (cls[c_out] >> 1);
+			}
+			can[i] = fh < rh ? fh : rh;
+			const bool ok = j < heads && bad == 0;
+			const bool force = snv || iupac != 0;
+			live |= (uint32_t)(ok && !force) << i;
+			forced |= (uint32_t)(ok && force) << i;
 		}
-		if (bad)
-			continue;
-		bool gate = snv || iupac;
-		if (!gate) {
-			uint64_t can = fh < rh ? fh : rh;
-			gate = fails_filter(can, k, table, modulus, wbits, layout, hash_num,
-			                    min_threshold);
-		}
-		bits |= (uint32_t)gate << j;
+		bits |= (forced | probe_batch<L>(can, live, f)) << b0;
 	}
 	out[word] = bits;
 }
+
+__device__ __forceinline__ uint64_t mix64(uint64_t c)
+{
+	uint64_t z = (c + 1) * 0x9E3779B97F4A7C15ULL;  // splitmix64
+	z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+	z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+	return z ^ (z >> 31);
+}
+
+// Thread i makes probes [probes*i/threads, probes*(i+1)/threads): probe c
+// reads table[mix64(c) mod size], ``batch`` (at most kBatch) loads in
+// flight, and the thread writes the XOR of what it read.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+probe_floor_kernel(const T* __restrict__ table, uint64_t size, uint64_t magic,
+                   uint64_t probes, uint64_t threads, int batch, uint32_t* __restrict__ out)
+{
+	const uint64_t tid = (uint64_t)blockIdx.x * kThreads + threadIdx.x;
+	if (tid >= threads)
+		return;
+	const uint64_t lo = probes * tid / threads, hi = probes * (tid + 1) / threads;
+	uint32_t acc = 0;
+	for (uint64_t p = lo; p < hi; p += batch) {
+		uint32_t got[kBatch];
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i)
+			got[i] = load_if(table + fastmod(mix64(p + i), size, magic), i < batch && p + i < hi, 0);
+#pragma unroll
+		for (int i = 0; i < kBatch; ++i)
+			acc ^= got[i];
+	}
+	out[tid] = acc;
+}
+
+unsigned blocks_for(uint64_t threads) { return (unsigned)((threads + kThreads - 1) / kThreads); }
 
 }  // namespace
 
@@ -228,22 +388,78 @@ extern "C" {
 
 // Gate words for heads [0, n) of ``seq`` on ``stream``.  ``seq`` must hold
 // ceil(n / 8192) * 8192 + 1024 readable bytes and be 16-byte aligned;
-// ``out`` holds ceil(n / 32) words.  Returns cudaGetLastError() after the
+// ``out`` holds ceil(n / 32) words.  ``magic`` is mod_magic(modulus) for
+// the plain and counting layouts.  Returns cudaGetLastError() after the
 // launch (0 on success).
-int ntg_gate_words(const void* seq, uint64_t n, int k, const void* table,
-                   uint64_t modulus, int wbits, int layout, int hash_num, int snv,
+int ntg_gate_words(const void* seq, uint64_t n, int k, const void* table, uint64_t modulus,
+                   uint64_t magic, int wbits, int layout, int hash_num, int snv,
                    int min_threshold, void* out, void* stream)
 {
-	const uint64_t n_words = (n + 31) / 32;
-	const uint64_t blocks = (n_words + kThreads - 1) / kThreads;
 	if (n == 0)
 		return 0;
-	if (k < 1 || k > kHalo + 1)
+	if (k < 1 || k > kHalo + 1 || hash_num < 1 || modulus == 0)
 		return (int)cudaErrorInvalidValue;
-	gate_words_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-	    static_cast<const uint8_t*>(seq), n, k, table, modulus, wbits, layout, hash_num, snv,
-	    min_threshold, static_cast<uint32_t*>(out), n_words);
+	const uint64_t n_words = (n + kHeads - 1) / kHeads;
+	const Filter f{table, modulus, magic, wbits, hash_num, k, min_threshold};
+	const auto* s = static_cast<const uint8_t*>(seq);
+	auto* o = static_cast<uint32_t*>(out);
+	auto st = static_cast<cudaStream_t>(stream);
+	const unsigned blocks = blocks_for(n_words);
+	switch (layout) {
+	case kPlain:
+		gate_words_kernel<kPlain><<<blocks, kThreads, 0, st>>>(s, n, f, snv, o, n_words);
+		break;
+	case kBlocked:
+		gate_words_kernel<kBlocked><<<blocks, kThreads, 0, st>>>(s, n, f, snv, o, n_words);
+		break;
+	case kCounting:
+		gate_words_kernel<kCounting><<<blocks, kThreads, 0, st>>>(s, n, f, snv, o, n_words);
+		break;
+	default:
+		return (int)cudaErrorInvalidValue;
+	}
 	return (int)cudaGetLastError();
+}
+
+// The random-probe floor: ``threads`` threads (in blocks of the gate
+// kernel's size) make ``probes`` probes of a table of ``size`` elements of
+// ``elem_bytes`` (4: words, 1: counters), ``batch`` loads in flight each;
+// ``out`` holds one word per thread.
+int ntg_probe_floor(const void* table, uint64_t size, uint64_t magic, int elem_bytes,
+                    uint64_t probes, uint64_t threads, int batch, void* out, void* stream)
+{
+	if (threads == 0)
+		return 0;
+	if (batch < 1 || batch > kBatch || size == 0)
+		return (int)cudaErrorInvalidValue;
+	auto st = static_cast<cudaStream_t>(stream);
+	auto* o = static_cast<uint32_t*>(out);
+	if (elem_bytes == 4)
+		probe_floor_kernel<uint32_t><<<blocks_for(threads), kThreads, 0, st>>>(
+		    static_cast<const uint32_t*>(table), size, magic, probes, threads, batch, o);
+	else if (elem_bytes == 1)
+		probe_floor_kernel<uint8_t><<<blocks_for(threads), kThreads, 0, st>>>(
+		    static_cast<const uint8_t*>(table), size, magic, probes, threads, batch, o);
+	else
+		return (int)cudaErrorInvalidValue;
+	return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM: which = 0, 1, 2 for the gate kernel's plain,
+// blocked and counting forms, 3 and 4 for the floor's word and counter
+// forms.  Negative on error.
+int ntg_occupancy(int which)
+{
+	int blocks = 0;
+	cudaError_t err = cudaErrorInvalidValue;
+	switch (which) {
+	case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gate_words_kernel<kPlain>, kThreads, 0); break;
+	case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gate_words_kernel<kBlocked>, kThreads, 0); break;
+	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gate_words_kernel<kCounting>, kThreads, 0); break;
+	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, probe_floor_kernel<uint32_t>, kThreads, 0); break;
+	case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, probe_floor_kernel<uint8_t>, kThreads, 0); break;
+	}
+	return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* ntg_error_string(int code)
@@ -253,5 +469,6 @@ const char* ntg_error_string(int code)
 
 int ntg_tile_heads() { return kTile; }
 int ntg_halo_bytes() { return kHalo; }
+int ntg_batch() { return kBatch; }
 
 }  // extern "C"

@@ -31,9 +31,11 @@ from ntedit_tpu_torch.engine.config import ACCEPTED
 from ntedit_tpu_torch.utils.build import build_library
 
 TILE = 8192  # heads per CUDA block: 256 threads x 32 heads
-HALO = 1024  # bytes a block reads past its tile
+HALO = 1024  # bytes a block may read past its tile
 MAX_K = HALO + 1
+BATCH = 8  # heads a thread hashes before their probes issue: loads in flight
 LAYOUT_CODE = {"plain": 0, "blocked": 1, "counting": 2}
+MASK64 = (1 << 64) - 1
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "csrc", "gate_kernel.cu")
@@ -42,6 +44,26 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 def padded_len(n: int) -> int:
     """Bytes the kernel reads for heads [0, n): whole tiles plus the halo."""
     return -(-n // TILE) * TILE + HALO
+
+
+def mod_magic(m: int) -> int:
+    """The kernel's reciprocal of a modulus ``m``: floor((2^64 - 1) / m).
+
+    With it ``q = floor(x * magic / 2^64)`` is floor(x / m) or one less
+    for every 64-bit x (magic = (2^64 - e) / m with 0 < e <= m, so
+    x * magic / 2^64 > x / m - 1), and one correction step makes
+    ``x - q * m`` the exact remainder (``mod_by_magic``)."""
+    if not 0 < m <= MASK64:
+        raise ValueError(f"modulus {m} outside [1, 2^64)")
+    return MASK64 // m
+
+
+def mod_by_magic(x: int, m: int, magic: int) -> int:
+    """``x % m`` as the kernel's ``fastmod`` computes it, in Python ints
+    wrapped to 64 bits as the card's registers wrap them."""
+    q = (x * magic) >> 64  # __umul64hi
+    r = (x - q * m) & MASK64
+    return r - m if r >= m else r
 
 
 # byte classes: bit 0 = fails isAcceptedBase, bit 1 = accepted IUPAC
@@ -107,12 +129,19 @@ def _nvcc() -> str:
 
 def _command(src: str, out: str) -> list:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
 
 
 def build(force: bool = False) -> str:
     """Compile the kernel (once per source content); returns the .so path."""
     return build_library("gate_kernel", SOURCE, _command, force=force)
+
+
+def build_log() -> str:
+    """What nvcc printed when it built the library: ptxas's registers,
+    shared memory and spills per kernel (``-Xptxas -v``)."""
+    with open(build() + ".log") as f:
+        return f.read()
 
 
 def load_library():
@@ -125,14 +154,23 @@ def load_library():
             lib.ntg_gate_words.restype = ctypes.c_int
             lib.ntg_gate_words.argtypes = [
                 ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,     # seq, n, k
-                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,     # table, modulus, wbits
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # layout, hash_num, snv, min_thr
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,  # table, modulus, magic
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # wbits, layout, hash_num
+                ctypes.c_int, ctypes.c_int,                         # snv, min_threshold
                 ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
             ]
+            lib.ntg_probe_floor.restype = ctypes.c_int
+            lib.ntg_probe_floor.argtypes = [
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,  # table, size, magic, elem
+                ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,     # probes, threads, batch
+                ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
+            ]
+            lib.ntg_occupancy.restype = ctypes.c_int
+            lib.ntg_occupancy.argtypes = [ctypes.c_int]
             lib.ntg_error_string.restype = ctypes.c_char_p
             lib.ntg_error_string.argtypes = [ctypes.c_int]
-            if lib.ntg_tile_heads() != TILE or lib.ntg_halo_bytes() != HALO:
-                raise RuntimeError("gate kernel tile/halo differ from the wrapper's")
+            if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, BATCH):
+                raise RuntimeError("gate kernel tile/halo/batch differ from the wrapper's")
             _lib = lib
         return _lib
 
@@ -161,8 +199,11 @@ def gate_words(seq: torch.Tensor, n: int, df, snv: bool = False,
     out = torch.empty(max(0, -(-n // 32)), dtype=torch.int32, device=seq.device)
     if n <= 0:
         return out
+    if df.hash_num < 1:
+        raise ValueError(f"gate kernel needs hash_num >= 1, got {df.hash_num}")
     rc = lib.ntg_gate_words(
         seq.data_ptr(), n, k, df.table.data_ptr(), df.modulus,
+        0 if df.blocked else mod_magic(df.modulus),
         df.wbits if df.blocked else 0, LAYOUT_CODE[df.layout], df.hash_num,
         int(bool(snv)), int(min_threshold), out.data_ptr(),
         torch.cuda.current_stream(seq.device).cuda_stream,
@@ -176,3 +217,55 @@ def gate_words(seq: torch.Tensor, n: int, df, snv: bool = False,
 
 _count_lock = threading.Lock()
 gate_words.launches = 0  # kernel launches since the last reset
+
+
+OCCUPANCY_FORMS = ("plain", "blocked", "counting", "floor_words", "floor_counters")
+
+
+def occupancy() -> dict:
+    """Resident blocks per SM of each kernel form on the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's block
+    size); negative on error."""
+    lib = load_library()
+    return {name: lib.ntg_occupancy(i) for i, name in enumerate(OCCUPANCY_FORMS)}
+
+
+def mix64(c: int) -> int:
+    """splitmix64 of counter ``c``: the floor kernel's random index."""
+    z = ((c + 1) * 0x9E3779B97F4A7C15) & MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MASK64
+    return z ^ (z >> 31)
+
+
+def probe_floor(table: torch.Tensor, probes: int, threads: int,
+                batch: int = BATCH) -> torch.Tensor:
+    """The random-probe floor on the card: ``threads`` threads (blocks of
+    the gate kernel's size) make ``probes`` uniformly random probes of
+    ``table`` (int32 words or uint8 counters), ``batch`` loads in flight
+    each (the gate kernel's by default), and nothing else; returns each
+    thread's XOR of what it read (int32 [threads]).  A measuring stick: not
+    in ``gate_words.launches``."""
+    lib = load_library()
+    if table.device.type != "cuda" or table.dim() != 1 or not table.is_contiguous():
+        raise ValueError("probe floor needs a contiguous 1-D CUDA table")
+    if table.dtype not in (torch.int32, torch.uint8):
+        raise ValueError(f"probe floor reads int32 words or uint8 counters, not {table.dtype}")
+    if probes * (threads + 1) > MASK64 or not 1 <= batch <= BATCH:
+        raise ValueError(f"probe floor needs probes * threads < 2^64 and 1 <= batch <= {BATCH}")
+    out = torch.empty(threads, dtype=torch.int32, device=table.device)
+    rc = lib.ntg_probe_floor(table.data_ptr(), table.numel(), mod_magic(table.numel()),
+                             table.element_size(), probes, threads, batch, out.data_ptr(),
+                             torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"probe floor launch failed: {lib.ntg_error_string(rc).decode()}")
+    return out
+
+
+def probe_floor_word(table: np.ndarray, probes: int, threads: int, tid: int) -> int:
+    """The floor kernel's word for thread ``tid``, in Python (its plain
+    version): XOR of table[mix64(c) % size] over the thread's probes c."""
+    acc = 0
+    for c in range(probes * tid // threads, probes * (tid + 1) // threads):
+        acc ^= int(table[mix64(c) % table.size]) & 0xFFFFFFFF
+    return acc

@@ -3,7 +3,8 @@
 The library goes into the package's ``_build/`` directory (gitignored),
 named by a digest of the source and the command, so an edited source or
 changed flags build anew and an unchanged one loads the earlier build.
-A failed build raises with the compiler's output.
+A failed build raises with the compiler's output; a build that succeeds
+keeps it beside the library, as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -49,5 +50,7 @@ def build_library(name: str, source: str, command: Callable[[str, str], list],
         if proc.returncode != 0:
             raise RuntimeError(
                 f"building {name} from {source} failed:\n{proc.stdout}{proc.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent processes never see half a file
     return out
