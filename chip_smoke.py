@@ -521,12 +521,12 @@ def phase_counting(work: str) -> dict:
 # phase 5: numbers
 # ---------------------------------------------------------------------------
 
-def probed_sectors(seq_dev, n: int, df) -> tuple:
-    """(least, issued, live heads): distinct 32-byte DRAM sectors of the
-    filter that the gate pass must read for these heads (the valid,
-    unforced windows, the plain layout stopping at its first clear bit),
-    the distinct sectors the kernel reads (every probe of every live
-    head), and the number of live heads."""
+def probed_sectors(seq_dev, n: int, df, min_threshold: int) -> tuple:
+    """(sectors, live heads, probes): the distinct 32-byte DRAM sectors of
+    the filter that the gate pass must read for these heads, the number of
+    heads it probes (valid, not forced) and the probes it makes.  Plain and
+    counting stop at the first deciding probe, as the kernel does: a clear
+    bit, or a counter below max(min_threshold, 1)."""
     import torch
 
     from ntedit_tpu_torch.core import nthash as nt
@@ -538,19 +538,19 @@ def probed_sectors(seq_dev, n: int, df) -> tuple:
     n_live = int(live.sum())
     can = nt.canonical(*nt.window_hashes(s, df.k))
     if df.blocked:
-        least = int(torch.unique(((can & (df.modulus - 1)) >> 3)[live]).numel())
-        return least, least, n_live
-    shift = 5 if df.counting else 8  # 32 counters or 256 bits per sector
-    least, issued = [], []
-    still = live
+        return int(torch.unique(((can & (df.modulus - 1)) >> 3)[live]).numel()), n_live, n_live
+    sectors = []
+    probes = 0
     for h in nt.extend(can, df.k, df.hash_num):
+        probes += int(live.sum())
         idx = nt.umod(h, df.modulus)
-        issued.append((idx >> shift)[live])
-        least.append((idx >> shift)[still])
-        if not df.counting:  # every counter is read; plain stops at a clear bit
-            still = still & (((df.table[idx >> 5].long() & 0xFFFFFFFF) >> (idx & 31)) & 1 == 1)
-    return (int(torch.unique(torch.cat(least)).numel()),
-            int(torch.unique(torch.cat(issued)).numel()), n_live)
+        if df.counting:  # 32 counters per sector
+            sectors.append((idx >> 5)[live])
+            live = live & (df.table[idx].long() >= max(min_threshold, 1))
+        else:  # 256 bits per sector
+            sectors.append((idx >> 8)[live])
+            live = live & (((df.table[idx >> 5].long() & 0xFFFFFFFF) >> (idx & 31)) & 1 == 1)
+    return int(torch.unique(torch.cat(sectors)).numel()), n_live, probes
 
 
 def time_cuda(fn, reps: int, flush) -> float:
@@ -627,12 +627,11 @@ def phase_numbers(power: str) -> dict:
         gate_kernel.gate_words.launches = before  # timing launches are not the path's
         plain_ms = time_cuda(lambda: gate_kernel.gate_words_plain(seq_dev, n, df, False, p),
                              3, flush)
-        sectors, sectors_issued, live = probed_sectors(seq_dev, n, df)
+        sectors, live, probes = probed_sectors(seq_dev, n, df, p)
         nbytes = L + 4 * (-(-n // 32)) + 32 * sectors
         table = df.table
         # the floor: as many random probes of this table as the kernel
         # issues, from as many threads, checked against its Python version
-        probes = live * (1 if df.blocked else df.hash_num)
         threads = -(-n // 32)
         floor_words = gate_kernel.probe_floor(table, probes, threads).cpu().numpy()
         host_table = table.cpu().numpy()
@@ -647,8 +646,7 @@ def phase_numbers(power: str) -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {"heads": n, "live_heads": live, "probes": probes,
                       "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms, "floor_ms": floor_ms,
-                      "sectors": sectors, "extra_sectors": sectors_issued - sectors,
-                      "bytes": nbytes, "bound_ms": bound_ms,
+                      "sectors": sectors, "bytes": nbytes, "bound_ms": bound_ms,
                       "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
                       "differing_words": diff, "max_abs_err": err,
                       "filter_bytes": hf.bytes}
@@ -714,7 +712,7 @@ def main() -> int:
         "take_ms": blk["take_ms"],
         "floor_ms": blk["floor_ms"],
         "layouts": {name: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                   "plain_ms", "extra_sectors")}
+                                                   "plain_ms")}
                     for name, r in numbers["layouts"].items()},
     }], "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

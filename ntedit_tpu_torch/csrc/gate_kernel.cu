@@ -40,9 +40,12 @@
 //      indexed by the 2-bit codes of the bytes leaving and entering the
 //      window; their values are right for ACGTacgt, and any other byte makes
 //      the window invalid or forced, so its hash is never used.
-//   2. probe: issue every probe of the batch as an independent predicated
-//      ld.global.nc (no branch, no early stop), kBatch loads in flight per
-//      thread; plain and counting issue their hash_num rounds back to back.
+//   2. probe: issue the batch's probes as independent predicated
+//      ld.global.nc loads (no branch), kBatch in flight per thread.  Plain
+//      and counting make hash_num such rounds; a round probes only the
+//      heads that the earlier rounds left undecided (present so far, or a
+//      minimum count still >= min_threshold), so an absent k-mer costs
+//      what it does on the host.
 //   3. gate: fold the loaded words into the batch's gate bits.
 //
 // The plain and counting layouts reduce a 64-bit hash modulo the filter
@@ -211,51 +214,46 @@ __device__ __forceinline__ uint32_t probe_batch(const uint64_t (&can)[kBatch], u
 			fail |= (uint32_t)((got[i] & want[i]) != want[i]) << i;
 		return fail & live;
 	}
+	// plain and counting: hash_num rounds, each of kBatch independent loads,
+	// each predicated on the heads the earlier rounds left undecided
 	if (L == kPlain) {
 		const uint32_t* words = static_cast<const uint32_t*>(f.table);
 		uint32_t present = live;
-		for (int j = 0; j < f.hash_num; ++j) {
+#pragma unroll 1
+		for (int j = 0; j < f.hash_num && present; ++j) {
 			const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
-			uint32_t got[kBatch], bit[kBatch];
+			uint32_t got[kBatch];
+			uint64_t bits = 0;  // the bit offsets in their words, 5 bits each
 #pragma unroll
 			for (int i = 0; i < kBatch; ++i) {
 				const uint64_t h = j ? extended(can[i], mult) : can[i];
 				const uint64_t idx = fastmod(h, f.modulus, f.magic);
-				bit[i] = (uint32_t)idx & 31;
-				got[i] = load_if(words + (idx >> 5), (live >> i) & 1, ~0u);
+				bits |= (idx & 31) << (5 * i);
+				got[i] = load_if(words + (idx >> 5), (present >> i) & 1, ~0u);
 			}
 #pragma unroll
 			for (int i = 0; i < kBatch; ++i)
-				present &= ~((((~got[i]) >> bit[i]) & 1) << i);
+				present &= ~(((~got[i] >> ((bits >> (5 * i)) & 31)) & 1) << i);
 		}
 		return live & ~present;
 	}
 	const uint8_t* counters = static_cast<const uint8_t*>(f.table);
-	uint32_t cnt[kBatch / 4];  // the running minima, four 8-bit lanes a word
-#pragma unroll
-	for (int q = 0; q < kBatch / 4; ++q)
-		cnt[q] = ~0u;
-	for (int j = 0; j < f.hash_num; ++j) {
+	const uint32_t low = f.min_threshold > 1 ? (uint32_t)f.min_threshold : 1;
+	uint32_t open = live;  // heads whose minimum so far is still >= low
+#pragma unroll 1
+	for (int j = 0; j < f.hash_num && open; ++j) {
 		const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
 		uint32_t got[kBatch];
 #pragma unroll
 		for (int i = 0; i < kBatch; ++i) {
 			const uint64_t h = j ? extended(can[i], mult) : can[i];
-			got[i] = load_if(counters + fastmod(h, f.modulus, f.magic), (live >> i) & 1, 255);
+			got[i] = load_if(counters + fastmod(h, f.modulus, f.magic), (open >> i) & 1, 255);
 		}
 #pragma unroll
-		for (int i = 0; i < kBatch; ++i) {
-			const int lane = 8 * (i & 3);
-			cnt[i >> 2] = __vminu4(cnt[i >> 2], (got[i] << lane) | ~(0xFFu << lane));
-		}
+		for (int i = 0; i < kBatch; ++i)
+			open &= ~((uint32_t)(got[i] < low) << i);
 	}
-	uint32_t fail = 0;
-#pragma unroll
-	for (int i = 0; i < kBatch; ++i) {
-		const uint32_t c = (cnt[i >> 2] >> (8 * (i & 3))) & 0xFF;
-		fail |= (uint32_t)(c == 0 || (f.min_threshold > 1 && c < (uint32_t)f.min_threshold)) << i;
-	}
-	return fail & live;
+	return live & ~open;
 }
 
 // byte p of a thread's window stream: row (p / 32) past its own, column p % 32
@@ -273,6 +271,7 @@ gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv
 	__shared__ uint64_t roll_f[16], roll_r[16], seed_f[4], seed_r[4];
 	__shared__ uint8_t cls[256];
 	static_assert(kThreads == 256, "one thread per byte class");
+	static_assert(5 * kBatch <= 64, "a batch's plain bit offsets fit one 64-bit word");
 
 	const int k = f.k;
 	const unsigned t = threadIdx.x;
@@ -309,16 +308,16 @@ gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv
 	const int heads = left < kHeads ? (int)left : kHeads;  // heads of this word below n
 	const uint8_t* row = tile + t * kRowStride;
 
+	// the first window directly: fh over bytes 0..k-1, rh over k-1..0
 	uint64_t fh = 0, rh = 0;
 	int bad = 0, iupac = 0;
 	for (int i = 0; i < k; ++i) {
 		const unsigned c = tile_byte(row, i);
 		fh = srol1(fh) ^ seed_f[code_of(c)];
+		rh = srol1(rh) ^ seed_r[code_of(tile_byte(row, k - 1 - i))];
 		bad += cls[c] & 1;
 		iupac += cls[c] >> 1;
 	}
-	for (int i = k - 1; i >= 0; --i)
-		rh = srol1(rh) ^ seed_r[code_of(tile_byte(row, i))];
 
 	uint32_t bits = 0;
 #pragma unroll

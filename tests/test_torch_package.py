@@ -92,14 +92,16 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [25, 33])
 @pytest.mark.parametrize("layout", ["blocked", "plain", "counting"])
-def test_kernel_matches_plain_on_the_card(layout):
+def test_kernel_matches_plain_on_the_card(layout, k):
+    """k = 33 is the last k whose srol^k stays inside the 33-bit half; n
+    runs over a ragged tail, a tile boundary +1 and a short contig."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the gate kernel has no CPU mode")
     from ntedit_tpu_torch.core import nthash_ref as ref
 
     rng = np.random.default_rng(3)
-    k = 25
     truth = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=30_000)]
     draft = truth.copy()
     draft[rng.integers(0, len(draft), size=300)] = ord("A")
@@ -117,12 +119,12 @@ def test_kernel_matches_plain_on_the_card(layout):
         fh, rh = ref.all_window_hashes(truth, k)
         hf.insert_hashes(ref.extend_hashes_vec(ref.canonical(fh, rh), k, 3))
     df = bloom.DeviceFilter.from_host(hf, "cuda")
-    n = len(draft) - k + 1
-    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
-    buf[: len(draft)] = torch.from_numpy(draft)
-    seq = buf.cuda()
-    for snv in (False, True):
-        for p in (1, 3):
-            got = gate_kernel.gate_words(seq, n, df, snv, p)
-            want = gate_kernel.gate_words_plain(seq, n, df, snv, p)
-            assert torch.equal(got, want)
+    for n in (len(draft) - k + 1, gate_kernel.TILE + 1, 33):
+        buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+        buf[: n + k - 1] = torch.from_numpy(draft[: n + k - 1])
+        seq = buf.cuda()
+        for snv in (False, True):
+            for p in (1, 3):
+                got = gate_kernel.gate_words(seq, n, df, snv, p)
+                want = gate_kernel.gate_words_plain(seq, n, df, snv, p)
+                assert torch.equal(got, want), (n, snv, p)
