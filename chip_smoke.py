@@ -220,10 +220,10 @@ def phase_resources() -> dict:
     res = ptxas_resources(gate_kernel.build_log())
     for form, blocks in gate_kernel.occupancy().items():
         res.setdefault(form, {})["blocks_per_sm"] = blocks
-    spilled = {f: r for f, r in res.items() if r.get("spill_stores") or r.get("spill_loads")}
     if any(r.get("blocks_per_sm", 0) <= 0 for r in res.values()):
         raise RuntimeError(f"a kernel form cannot be resident: {res}")
-    return {"phase": "kernel_resources", "forms": res, "spills": bool(spilled),
+    spills = any(r.get("spill_stores") or r.get("spill_loads") for r in res.values())
+    return {"phase": "kernel_resources", "forms": res, "spills": spills,
             "sms": torch.cuda.get_device_properties(0).multi_processor_count,
             "threads_per_block": gate_kernel.TILE // 32}
 

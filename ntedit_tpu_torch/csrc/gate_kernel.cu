@@ -21,10 +21,13 @@
 //
 // Bound.  Each probe is a random read from a filter far larger than the
 // 50 MB L2: one 32-byte DRAM sector per probed word (blocked: one per live
-// head; plain and counting: hash_num).  Beside that the pass reads 1 B of
-// ASCII per head and writes 1/8 B per head, so it is bound by the card's
-// rate of random sectors, not by its bytes per second or its integer
-// throughput.  What matters is how many probes are in flight at once.
+// head; plain and counting: up to hash_num).  Beside that the pass reads
+// 1 B of ASCII per head and writes 1/8 B per head.  The card's bytes per
+// second would allow about 4x the speed; what bounds it is the rate at
+// which the DRAM serves random sectors, about 30 G probes/s on an H100
+// whether a thread keeps 1 or 8 loads in flight (probe_floor_kernel below;
+// PERF.md).  So the design aims at making no probe the gate does not need
+// and at keeping the hashing off the memory's critical path.
 //
 // Design.  One thread owns 32 consecutive heads and writes their gate word
 // (a warp's lanes own consecutive words, so no cross-lane pack is needed).
@@ -60,7 +63,7 @@
 //
 // probe_floor_kernel, below, is a measuring stick and not on any path: the
 // same number of threads each making the same number of random probes of
-// the same table with kBatch loads in flight, and nothing else.
+// the same table with (by default) kBatch loads in flight, and nothing else.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,7 +152,8 @@ __device__ uint8_t byte_class(unsigned c)
 
 // x mod m for any 64-bit x, given magic = floor((2^64 - 1) / m): the
 // estimate q = floor(x * magic / 2^64) is floor(x / m) or one less, so one
-// correction step gives the exact remainder (ops/gate_kernel.py::mod_by_magic)
+// correction step gives the exact remainder (ops/gate_kernel.py::mod_magic;
+// tests/test_torch_gate_kernel.py holds this arithmetic to '%')
 __device__ __forceinline__ uint64_t fastmod(uint64_t x, uint64_t m, uint64_t magic)
 {
 	const uint64_t r = x - __umul64hi(x, magic) * m;

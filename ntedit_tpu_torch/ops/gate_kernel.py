@@ -52,18 +52,10 @@ def mod_magic(m: int) -> int:
     With it ``q = floor(x * magic / 2^64)`` is floor(x / m) or one less
     for every 64-bit x (magic = (2^64 - e) / m with 0 < e <= m, so
     x * magic / 2^64 > x / m - 1), and one correction step makes
-    ``x - q * m`` the exact remainder (``mod_by_magic``)."""
+    ``x - q * m`` the exact remainder (the kernel's ``fastmod``)."""
     if not 0 < m <= MASK64:
         raise ValueError(f"modulus {m} outside [1, 2^64)")
     return MASK64 // m
-
-
-def mod_by_magic(x: int, m: int, magic: int) -> int:
-    """``x % m`` as the kernel's ``fastmod`` computes it, in Python ints
-    wrapped to 64 bits as the card's registers wrap them."""
-    q = (x * magic) >> 64  # __umul64hi
-    r = (x - q * m) & MASK64
-    return r - m if r >= m else r
 
 
 # byte classes: bit 0 = fails isAcceptedBase, bit 1 = accepted IUPAC
@@ -167,6 +159,9 @@ def load_library():
             ]
             lib.ntg_occupancy.restype = ctypes.c_int
             lib.ntg_occupancy.argtypes = [ctypes.c_int]
+            for name in ("ntg_tile_heads", "ntg_halo_bytes", "ntg_batch"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = []
             lib.ntg_error_string.restype = ctypes.c_char_p
             lib.ntg_error_string.argtypes = [ctypes.c_int]
             if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, BATCH):
@@ -199,8 +194,6 @@ def gate_words(seq: torch.Tensor, n: int, df, snv: bool = False,
     out = torch.empty(max(0, -(-n // 32)), dtype=torch.int32, device=seq.device)
     if n <= 0:
         return out
-    if df.hash_num < 1:
-        raise ValueError(f"gate kernel needs hash_num >= 1, got {df.hash_num}")
     rc = lib.ntg_gate_words(
         seq.data_ptr(), n, k, df.table.data_ptr(), df.modulus,
         0 if df.blocked else mod_magic(df.modulus),

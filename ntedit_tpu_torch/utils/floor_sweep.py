@@ -24,6 +24,7 @@ import subprocess
 import numpy as np
 import torch
 
+from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.ops import gate_kernel
 
 PROBES = 1 << 22
@@ -58,9 +59,14 @@ def _cudart():
     None when it cannot be found."""
     for name in ("libcudart.so.12", "libcudart.so"):
         try:
-            return ctypes.CDLL(name)
+            rt = ctypes.CDLL(name)
         except OSError:
             continue
+        rt.cudaDeviceGetLimit.restype = ctypes.c_int
+        rt.cudaDeviceGetLimit.argtypes = [ctypes.POINTER(ctypes.c_size_t), ctypes.c_int]
+        rt.cudaDeviceSetLimit.restype = ctypes.c_int
+        rt.cudaDeviceSetLimit.argtypes = [ctypes.c_int, ctypes.c_size_t]
+        return rt
     return None
 
 
@@ -83,8 +89,9 @@ def main() -> int:
         t = words(mib * MIB)
         print(json.dumps(floor_row(t, flush, gate_kernel.BATCH, sweep="size")), flush=True)
         del t
-    counters = torch.randint(0, 256, (8 * 177_960_404,), dtype=torch.uint8, device=dev,
-                             generator=gen)  # the counting filter of a 50 Mbp assembly
+    # the counting filter of a 50 Mbp assembly (chip_smoke.py's)
+    counters = torch.randint(0, 256, (8 * bloom.bf_size_bytes(50_000_000, 3, 0.001),),
+                             dtype=torch.uint8, device=dev, generator=gen)
     print(json.dumps(floor_row(counters, flush, gate_kernel.BATCH, sweep="size")), flush=True)
     del counters
     t = words(256 * MIB)
@@ -101,14 +108,14 @@ def main() -> int:
         return 0
     try:
         for g in (32, 64, 128):
-            rc = rt.cudaDeviceSetLimit(L2_FETCH_LIMIT, ctypes.c_size_t(g))
+            rc = rt.cudaDeviceSetLimit(L2_FETCH_LIMIT, g)
             got = ctypes.c_size_t(0)
             rt.cudaDeviceGetLimit(ctypes.byref(got), L2_FETCH_LIMIT)
             print(json.dumps(floor_row(t, flush, gate_kernel.BATCH, sweep="l2_fetch",
                                        default_granularity=old.value, asked=g, set_rc=rc,
                                        granularity=got.value)), flush=True)
     finally:
-        rt.cudaDeviceSetLimit(L2_FETCH_LIMIT, old)
+        rt.cudaDeviceSetLimit(L2_FETCH_LIMIT, old.value)
     return 0
 
 

@@ -1,6 +1,6 @@
 """The gate kernel's host side, on the CPU: the multiply-based modulo the
-kernel uses for plain and counting filters (mod_magic, mod_by_magic,
-written out as the kernel computes it) against Python's ``%``; the
+kernel uses for plain and counting filters (mod_magic's reciprocal, with
+the kernel's fastmod written out in Python ints) against ``%``; the
 wrapper's tile, halo and batch constants against the CUDA source and the
 gate stream's chunks; the probe floor's plain version; and the helpers
 with which chip_smoke.py reports the kernel (ptxas resources, probed
@@ -32,6 +32,14 @@ MODULI = [
 ]
 
 
+def fastmod(x: int, m: int, magic: int) -> int:
+    """The kernel's fastmod, wrapped to 64 bits as the card's registers
+    wrap: q = __umul64hi(x, magic), r = x - q * m, one correction."""
+    q = (x * magic) >> 64
+    r = (x - q * m) & MASK64
+    return r - m if r >= m else r
+
+
 def edge_hashes(m: int, rng) -> list:
     """0, m - 1, m, m + 1, q*m +- 1 for the largest q and a few others,
     hashes with bit 63 set, 2^64 - 1, and random 64-bit values."""
@@ -45,23 +53,23 @@ def edge_hashes(m: int, rng) -> list:
 
 
 @pytest.mark.parametrize("m", MODULI)
-def test_mod_by_magic_is_the_remainder(m):
+def test_fastmod_is_the_remainder(m):
     rng = np.random.default_rng(m % 1000)
     magic = gate_kernel.mod_magic(m)
     for x in edge_hashes(m, rng):
         q = (x * magic) >> 64
         assert q in (x // m, x // m - 1)  # one correction step is enough
-        assert gate_kernel.mod_by_magic(x, m, magic) == x % m, (x, m)
+        assert fastmod(x, m, magic) == x % m, (x, m)
 
 
-def test_mod_by_magic_small_moduli_exhaustively():
+def test_fastmod_small_moduli_exhaustively():
     rng = np.random.default_rng(1)
     xs = [int(v) for v in rng.integers(0, 1 << 63, size=64, dtype=np.int64)]
     xs += [x | (1 << 63) for x in xs] + [MASK64, 0]
     for m in range(1, 600):
         magic = gate_kernel.mod_magic(m)
         for x in xs:
-            assert gate_kernel.mod_by_magic(x, m, magic) == x % m
+            assert fastmod(x, m, magic) == x % m
 
 
 @pytest.mark.parametrize("m", [0, 1 << 64, -3])
