@@ -101,16 +101,6 @@ def make_genome(lengths, seed: int):
     return truths, drafts
 
 
-def fill_counts(cbf, seq: np.ndarray, times: int = 1) -> None:
-    """Insert every k-mer of ``seq`` into a counting filter ``times`` times."""
-    from ntedit_tpu_torch.core import nthash_ref as ref
-
-    fh, rh = ref.all_window_hashes(seq, cbf.k)
-    hashes = ref.extend_hashes_vec(ref.canonical(fh, rh), cbf.k, cbf.hash_num)
-    for _ in range(times):
-        cbf.insert_hashes(hashes)
-
-
 def write_fasta(path: str, contigs) -> None:
     from ntedit_tpu_torch.io import fastx
 
@@ -235,6 +225,7 @@ def phase_resources() -> dict:
 def _filters_for(truth: np.ndarray, k: int, device):
     """(name, DeviceFilter, min_threshold) cases for one k."""
     from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.utils import simulate
 
     out = []
     blk = bloom.BlockedKmerBloomFilter.zeros(1 << 16, 3, k)
@@ -245,8 +236,8 @@ def _filters_for(truth: np.ndarray, k: int, device):
         pl.insert_seq(truth)
         out.append((f"plain_h{h}", pl, 1))
     cbf = bloom.KmerCountingBloomFilter8.zeros(300_007, 3, k)
-    fill_counts(cbf, truth[: len(truth) // 2], 2)
-    fill_counts(cbf, truth)
+    simulate.fill_counts(cbf, truth[: len(truth) // 2], 2)
+    simulate.fill_counts(cbf, truth)
     for p in (1, 3):
         out.append((f"counting_p{p}", cbf, p))
     return [(name, bloom.DeviceFilter.from_host(f, device), p) for name, f, p in out]
@@ -499,6 +490,7 @@ def phase_main(work: str) -> list:
 def phase_counting(work: str) -> dict:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.utils import simulate
 
     k = 25
     length = CBF_LENGTH
@@ -507,11 +499,11 @@ def phase_counting(work: str) -> dict:
     write_fasta(draft_path, drafts)
     # one counter per bit of the plain filter's size: the same 0.001 FPR
     cbf = bloom.KmerCountingBloomFilter8.zeros(8 * bloom.bf_size_bytes(length, 3, 0.001), 3, k)
-    fill_counts(cbf, truths[0], 3)
+    simulate.fill_counts(cbf, truths[0], 3)
     # the draft's first half once: its error k-mers count 1 there, so -p 2
     # gates them but the missing check (count > 0) leaves them; the second
     # half's errors are absent and get repaired
-    fill_counts(cbf, drafts[0][: length // 2])
+    simulate.fill_counts(cbf, drafts[0][: length // 2])
     cfg = EngineConfig(k=k, hash_num=3, threads=1, min_threshold=2, max_threshold=254).validate()
     return run_and_check("counting", work, cbf, draft_path, truths,
                          ["-t", "8", "-p", "2", "-q", "254"], cfg)
@@ -592,28 +584,8 @@ def phase_numbers(power: str) -> dict:
     buf[:L] = torch.from_numpy(draft.copy())
     seq_dev = buf.to(dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
-    plain_bytes = bloom.bf_size_bytes(GENOME, 3, 0.001)
-    filters = {
-        "blocked": bloom.BlockedKmerBloomFilter.zeros(
-            bloom.pow2_size_bytes(GENOME, 3, 0.001), 3, k),
-        "plain": bloom.KmerBloomFilter.zeros(plain_bytes, 3, k),
-        "counting": bloom.KmerCountingBloomFilter8.zeros(8 * plain_bytes, 3, k),
-    }
-    # this chunk's truth k-mers, plus random bits in an eighth of the
-    # words (counters) for the occupancy of the rest of the genome
-    rng = np.random.default_rng(34)
     rows = {}
-    for name, hf in filters.items():
-        if name == "counting":
-            fill_counts(hf, truth, 3)
-        else:
-            hf.insert_seq(truth)
-        arr = hf.words if name == "blocked" else (hf.data if name == "plain" else hf.counters)
-        fill = rng.integers(0, arr.size, size=arr.size // 8)
-        if name == "counting":
-            arr[fill] = np.maximum(arr[fill], rng.integers(1, 4, size=fill.size).astype(np.uint8))
-        else:
-            arr[fill] |= (1 << rng.integers(0, 8 * arr.itemsize, size=fill.size)).astype(arr.dtype)
+    for name, hf in simulate.chunk_filters(truth, k, GENOME).items():
         df = bloom.DeviceFilter.from_host(hf, dev)
         p = 3 if name == "counting" else 1
         got = gate_kernel.gate_words(seq_dev, n, df, False, p)

@@ -44,12 +44,17 @@
 //      window; their values are right for ACGTacgt, and any other byte makes
 //      the window invalid or forced, so its hash is never used.
 //   2. probe: issue the batch's probes as independent predicated
-//      ld.global.nc loads (no branch), kBatch in flight per thread.  Plain
-//      and counting make hash_num such rounds; a round probes only the
-//      heads that the earlier rounds left undecided (present so far, or a
-//      minimum count still >= min_threshold), so an absent k-mer costs
-//      what it does on the host.
+//      ld.global.nc loads (no branch).  Plain and counting make hash_num
+//      such rounds; a round probes only the heads that the earlier rounds
+//      left undecided (present so far, or a minimum count still >=
+//      min_threshold), so an absent k-mer costs what it does on the host.
 //   3. gate: fold the loaded words into the batch's gate bits.
+//
+// kBatch is 2, measured: batches of 1, 2, 4 and 8 heads were timed against
+// each other on the same data (utils/gate_sweep.py), and 2 was the fastest
+// for plain and counting and within 0.4% of 1 for blocked.  More loads in
+// flight per thread do not help: the 131 k threads of a chunk already keep
+// more probes in flight than the DRAM serves.
 //
 // The plain and counting layouts reduce a 64-bit hash modulo the filter
 // size with a multiply by a reciprocal computed on the host (fastmod below,
@@ -74,7 +79,8 @@ constexpr int kThreads = 256;               // threads per block
 constexpr int kHeads = 32;                  // heads per thread: one gate word
 constexpr int kTile = kThreads * kHeads;    // heads per block
 constexpr int kHalo = 1024;                 // bytes a block may read past its tile
-constexpr int kBatch = 8;                   // heads hashed before their probes issue
+constexpr int kBatch = 2;                   // heads hashed before their probes issue
+constexpr int kMaxFloorBatch = 8;           // the floor kernel's deepest batch
 constexpr int kRowStride = 36;              // shared bytes per thread's 32 (9 words: odd)
 constexpr int kRows = (kTile + kHalo) / kHeads;
 constexpr int kMinBlocks = 4;               // resident blocks per SM to fit in registers
@@ -226,18 +232,17 @@ __device__ __forceinline__ uint32_t probe_batch(const uint64_t (&can)[kBatch], u
 #pragma unroll 1
 		for (int j = 0; j < f.hash_num && present; ++j) {
 			const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
-			uint32_t got[kBatch];
-			uint64_t bits = 0;  // the bit offsets in their words, 5 bits each
+			uint32_t got[kBatch], bit[kBatch];
 #pragma unroll
 			for (int i = 0; i < kBatch; ++i) {
 				const uint64_t h = j ? extended(can[i], mult) : can[i];
 				const uint64_t idx = fastmod(h, f.modulus, f.magic);
-				bits |= (idx & 31) << (5 * i);
+				bit[i] = (uint32_t)idx & 31;
 				got[i] = load_if(words + (idx >> 5), (present >> i) & 1, ~0u);
 			}
 #pragma unroll
 			for (int i = 0; i < kBatch; ++i)
-				present &= ~(((~got[i] >> ((bits >> (5 * i)) & 31)) & 1) << i);
+				present &= ~(((~got[i] >> bit[i]) & 1) << i);
 		}
 		return live & ~present;
 	}
@@ -275,7 +280,6 @@ gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv
 	__shared__ uint64_t roll_f[16], roll_r[16], seed_f[4], seed_r[4];
 	__shared__ uint8_t cls[256];
 	static_assert(kThreads == 256, "one thread per byte class");
-	static_assert(5 * kBatch <= 64, "a batch's plain bit offsets fit one 64-bit word");
 
 	const int k = f.k;
 	const unsigned t = threadIdx.x;
@@ -359,8 +363,8 @@ __device__ __forceinline__ uint64_t mix64(uint64_t c)
 }
 
 // Thread i makes probes [probes*i/threads, probes*(i+1)/threads): probe c
-// reads table[mix64(c) mod size], ``batch`` (at most kBatch) loads in
-// flight, and the thread writes the XOR of what it read.
+// reads table[mix64(c) mod size], ``batch`` (at most kMaxFloorBatch) loads
+// in flight, and the thread writes the XOR of what it read.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 probe_floor_kernel(const T* __restrict__ table, uint64_t size, uint64_t magic,
@@ -372,12 +376,12 @@ probe_floor_kernel(const T* __restrict__ table, uint64_t size, uint64_t magic,
 	const uint64_t lo = probes * tid / threads, hi = probes * (tid + 1) / threads;
 	uint32_t acc = 0;
 	for (uint64_t p = lo; p < hi; p += batch) {
-		uint32_t got[kBatch];
+		uint32_t got[kMaxFloorBatch];
 #pragma unroll
-		for (int i = 0; i < kBatch; ++i)
+		for (int i = 0; i < kMaxFloorBatch; ++i)
 			got[i] = load_if(table + fastmod(mix64(p + i), size, magic), i < batch && p + i < hi, 0);
 #pragma unroll
-		for (int i = 0; i < kBatch; ++i)
+		for (int i = 0; i < kMaxFloorBatch; ++i)
 			acc ^= got[i];
 	}
 	out[tid] = acc;
@@ -433,7 +437,7 @@ int ntg_probe_floor(const void* table, uint64_t size, uint64_t magic, int elem_b
 {
 	if (threads == 0)
 		return 0;
-	if (batch < 1 || batch > kBatch || size == 0)
+	if (batch < 1 || batch > kMaxFloorBatch || size == 0)
 		return (int)cudaErrorInvalidValue;
 	auto st = static_cast<cudaStream_t>(stream);
 	auto* o = static_cast<uint32_t*>(out);

@@ -33,7 +33,7 @@ from ntedit_tpu_torch.utils.build import build_library
 TILE = 8192  # heads per CUDA block: 256 threads x 32 heads
 HALO = 1024  # bytes a block may read past its tile
 MAX_K = HALO + 1
-BATCH = 8  # heads a thread hashes before their probes issue: loads in flight
+BATCH = 2  # heads a thread hashes before their probes issue (csrc kBatch)
 LAYOUT_CODE = {"plain": 0, "blocked": 1, "counting": 2}
 MASK64 = (1 << 64) - 1
 
@@ -136,37 +136,44 @@ def build_log() -> str:
         return f.read()
 
 
+def open_library(path: str, batch: int = BATCH):
+    """Load a build of the kernel and declare its C interface.  Raises when
+    it cannot be loaded or its tile, halo or batch (``batch``: the build's
+    kBatch) differ from the wrapper's."""
+    lib = ctypes.CDLL(path)
+    lib.ntg_gate_words.restype = ctypes.c_int
+    lib.ntg_gate_words.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,     # seq, n, k
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,  # table, modulus, magic
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # wbits, layout, hash_num
+        ctypes.c_int, ctypes.c_int,                         # snv, min_threshold
+        ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
+    ]
+    lib.ntg_probe_floor.restype = ctypes.c_int
+    lib.ntg_probe_floor.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,  # table, size, magic, elem
+        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,     # probes, threads, batch
+        ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
+    ]
+    lib.ntg_occupancy.restype = ctypes.c_int
+    lib.ntg_occupancy.argtypes = [ctypes.c_int]
+    for name in ("ntg_tile_heads", "ntg_halo_bytes", "ntg_batch"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
+    lib.ntg_error_string.restype = ctypes.c_char_p
+    lib.ntg_error_string.argtypes = [ctypes.c_int]
+    if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, batch):
+        raise RuntimeError("gate kernel tile/halo/batch differ from the wrapper's")
+    return lib
+
+
 def load_library():
     """The kernel's ctypes library, built at first use.  Raises when it
     cannot be built or loaded."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.ntg_gate_words.restype = ctypes.c_int
-            lib.ntg_gate_words.argtypes = [
-                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,     # seq, n, k
-                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,  # table, modulus, magic
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # wbits, layout, hash_num
-                ctypes.c_int, ctypes.c_int,                         # snv, min_threshold
-                ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
-            ]
-            lib.ntg_probe_floor.restype = ctypes.c_int
-            lib.ntg_probe_floor.argtypes = [
-                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,  # table, size, magic, elem
-                ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,     # probes, threads, batch
-                ctypes.c_void_p, ctypes.c_void_p,                   # out, stream
-            ]
-            lib.ntg_occupancy.restype = ctypes.c_int
-            lib.ntg_occupancy.argtypes = [ctypes.c_int]
-            for name in ("ntg_tile_heads", "ntg_halo_bytes", "ntg_batch"):
-                getattr(lib, name).restype = ctypes.c_int
-                getattr(lib, name).argtypes = []
-            lib.ntg_error_string.restype = ctypes.c_char_p
-            lib.ntg_error_string.argtypes = [ctypes.c_int]
-            if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, BATCH):
-                raise RuntimeError("gate kernel tile/halo/batch differ from the wrapper's")
-            _lib = lib
+            _lib = open_library(build())
         return _lib
 
 
@@ -235,8 +242,8 @@ def probe_floor(table: torch.Tensor, probes: int, threads: int,
                 batch: int = BATCH) -> torch.Tensor:
     """The random-probe floor on the card: ``threads`` threads (blocks of
     the gate kernel's size) make ``probes`` uniformly random probes of
-    ``table`` (int32 words or uint8 counters), ``batch`` loads in flight
-    each (the gate kernel's by default), and nothing else; returns each
+    ``table`` (int32 words or uint8 counters), ``batch`` (1 to 8) loads in
+    flight each (the gate kernel's by default), and nothing else; returns each
     thread's XOR of what it read (int32 [threads]).  A measuring stick: not
     in ``gate_words.launches``."""
     lib = load_library()
@@ -244,8 +251,8 @@ def probe_floor(table: torch.Tensor, probes: int, threads: int,
         raise ValueError("probe floor needs a contiguous 1-D CUDA table")
     if table.dtype not in (torch.int32, torch.uint8):
         raise ValueError(f"probe floor reads int32 words or uint8 counters, not {table.dtype}")
-    if probes * (threads + 1) > MASK64 or not 1 <= batch <= BATCH:
-        raise ValueError(f"probe floor needs probes * threads < 2^64 and 1 <= batch <= {BATCH}")
+    if probes * (threads + 1) > MASK64:
+        raise ValueError("probe floor needs probes * threads < 2^64")
     out = torch.empty(threads, dtype=torch.int32, device=table.device)
     rc = lib.ntg_probe_floor(table.data_ptr(), table.numel(), mod_magic(table.numel()),
                              table.element_size(), probes, threads, batch, out.data_ptr(),

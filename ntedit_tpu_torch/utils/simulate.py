@@ -1,14 +1,20 @@
-"""Synthetic workloads: seeded genomes and error-injected drafts.
+"""Synthetic workloads: seeded genomes, error-injected drafts and filters.
 
-A copy of the JAX package's generators (the port keeps its own host code).
-The reference validates against an E. coli demo (draft with ~0.001
-substitution and ~0.0001 indel rates, README.md:333); these produce the
-same *shape* of workload from a seed, without the network.
+``random_genome`` and ``inject_errors`` are a copy of the JAX package's
+generators (the port keeps its own host code).  The reference validates
+against an E. coli demo (draft with ~0.001 substitution and ~0.0001 indel
+rates, README.md:333); these produce the same *shape* of workload from a
+seed, without the network.  ``fill_counts`` and ``chunk_filters`` build the
+filters the card's runs time the gate kernel with (chip_smoke.py,
+utils/gate_sweep.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ntedit_tpu_torch.core import bloom
+from ntedit_tpu_torch.core import nthash_ref as ref
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -72,3 +78,38 @@ def inject_errors(
             prev = p + n
     out.append(truth[prev:])
     return np.concatenate(out), edits
+
+
+def fill_counts(cbf, seq: np.ndarray, times: int = 1) -> None:
+    """Insert every k-mer of ``seq`` into a counting filter ``times`` times."""
+    fh, rh = ref.all_window_hashes(seq, cbf.k)
+    hashes = ref.extend_hashes_vec(ref.canonical(fh, rh), cbf.k, cbf.hash_num)
+    for _ in range(times):
+        cbf.insert_hashes(hashes)
+
+
+def chunk_filters(truth: np.ndarray, k: int, genome: int, seed: int = 34) -> dict:
+    """Blocked, plain and counting host filters sized for a ``genome``-base
+    assembly (3 hashes, 0.001 FPR; the counting one has a counter per bit
+    of the plain one) holding every k-mer of ``truth`` (counted three
+    times), plus random bits, or counts of 1-3, in an eighth of the words
+    or counters for the occupancy of the rest of the genome."""
+    plain_bytes = bloom.bf_size_bytes(genome, 3, 0.001)
+    filters = {
+        "blocked": bloom.BlockedKmerBloomFilter.zeros(bloom.pow2_size_bytes(genome, 3, 0.001), 3, k),
+        "plain": bloom.KmerBloomFilter.zeros(plain_bytes, 3, k),
+        "counting": bloom.KmerCountingBloomFilter8.zeros(8 * plain_bytes, 3, k),
+    }
+    rng = np.random.default_rng(seed)
+    for name, hf in filters.items():
+        if name == "counting":
+            fill_counts(hf, truth, 3)
+        else:
+            hf.insert_seq(truth)
+        arr = hf.words if name == "blocked" else (hf.data if name == "plain" else hf.counters)
+        fill = rng.integers(0, arr.size, size=arr.size // 8)
+        if name == "counting":
+            arr[fill] = np.maximum(arr[fill], rng.integers(1, 4, size=fill.size).astype(np.uint8))
+        else:
+            arr[fill] |= (1 << rng.integers(0, 8 * arr.itemsize, size=fill.size)).astype(arr.dtype)
+    return filters

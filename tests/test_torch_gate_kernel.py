@@ -181,8 +181,8 @@ def test_probed_sectors_counts_the_kernels_probes(layout, p):
         hf.insert_seq(truth)
     else:
         hf = bloom.KmerCountingBloomFilter8.zeros(40_009, h, k)
-        chip_smoke.fill_counts(hf, truth)
-        chip_smoke.fill_counts(hf, truth[:3000])  # counts 2 in the first half
+        simulate.fill_counts(hf, truth)
+        simulate.fill_counts(hf, truth[:3000])  # counts 2 in the first half
     df = bloom.DeviceFilter.from_host(hf, "cpu")
     n = 5000
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
