@@ -62,8 +62,8 @@
 // layout keeps its power-of-two mask.  The shared-memory tile has a row
 // pitch of 36 bytes per thread's 32: lanes t..t+31 reading the same
 // offset of their rows hit 32 distinct banks.  __launch_bounds__ caps the
-// registers so that 4 blocks (1024 threads) stay resident per SM: a
-// 2^22-head chunk is 512 blocks, one wave on the 132 SMs.  Every index is
+// registers so that at least 4 blocks (1024 threads) stay resident per SM:
+// a 2^22-head chunk is 512 blocks, one wave on the 132 SMs.  Every index is
 // 64-bit.
 //
 // probe_floor_kernel, below, is a measuring stick and not on any path: the
