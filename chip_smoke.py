@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
-1. build    - builds the CUDA gate kernel (nvcc) and the host repair
-              library (g++) from the sources in this checkout, side by side.
+1. build    - builds the CUDA kernels (nvcc: the gate kernel and the SNV
+              kernels) and the host repair library (g++) from the sources in
+              this checkout, side by side.
    Then the kernels' registers, shared memory and spills (nvcc -Xptxas -v)
    and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 2. kernel   - the gate kernel against its plain torch version on the card,
@@ -14,19 +15,37 @@ Phases, each printing one JSON line; any failure exits nonzero:
               (-p 1 and 3) filters, k in {1, 17, 25, 33, 34, 40, 1025}, snv
               on and off, on a draft with N runs, IUPAC and lowercase bytes;
               ragged tails, n in {1, 31, 32, 33} and at a tile boundary +-1;
-              and a plain filter of 8e9 bits (above 2^32, not 2^n).
+              and a plain filter of 8e9 bits (above 2^32, not 2^n).  On the
+              same grid, blocked and plain filters: the SNV candidate kernel
+              against its plain version, and the SNV site kernel (jump 1, 3
+              and k) on those candidates plus heads at both contig ends, on
+              both sides of a tile edge and before N and IUPAC bytes.
 3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process) on a
               seeded 50 Mbp draft with a 256 MiB blocked filter, then with a
               btllib-sized plain filter; the three output files must equal,
               byte for byte, a host-only full sequential scan of the same
               C++ engine rendered by the same writers.
-4. counting - the same check with a count-min filter and -p 2 -q 254.
-5. numbers  - the gate pass alone at the main path's chunk shape (CUDA
+4. counting - the same check with a count-min filter and -p 2 -q 254, in
+              polish mode and with -s 1: the SNV path of the configurations
+              the candidate kernel does not serve (the gate kernel with snv
+              on, every valid head a hint for the whole-contig engine).
+5. snv      - ``engine -s 1 -t 8`` on a 50 Mbp reference with a 256 MiB
+              blocked filter that holds a copy of it with substitutions
+              (about 1 per kbp): with the device's site rows and without,
+              two runs each in turns, every run byte-identical to the
+              host-only full SNV scan; its stages one at a time; and one
+              run with a plain filter on a 5 Mbp contig.  Then the SNV site
+              kernel alone at the shape that path gives it, one launch on a
+              whole contig's candidates (the 30 Mbp contig, blocked; the 5
+              Mbp contig, plain): against its plain version, its bytes
+              bound, the probe floor and a torch.take yardstick.
+6. numbers  - the gate pass alone at the main path's chunk shape (CUDA
               events, L2 flushed between launches), its plain version, a
               torch.take gather of as many random words as a yardstick, the
               least time the card could take for the same bytes, and the
               random-probe floor: a probe-only kernel making as many random
-              probes of the same table with the same loads in flight.
+              probes of the same table with the same loads in flight.  The
+              same for the SNV candidate kernel (blocked and plain).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -35,6 +54,7 @@ checkout of the repository, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -153,7 +173,7 @@ def phase_build() -> dict:
     import torch
 
     from ntedit_tpu_torch.engine import native_repair
-    from ntedit_tpu_torch.ops import gate_kernel
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
@@ -163,8 +183,9 @@ def phase_build() -> dict:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as ex:  # nvcc and g++ side by side
+    with ThreadPoolExecutor(max_workers=3) as ex:  # two nvcc and g++ side by side
         jobs = {"gate_kernel_s": ex.submit(timed, gate_kernel.load_library),
+                "snv_kernel_s": ex.submit(timed, snv_kernel.load_library),
                 "repair_s": ex.submit(timed, native_repair.get_lib)}
         times = {name: job.result() for name, job in jobs.items()}
     return {"phase": "build", **times, "device": torch.cuda.get_device_name(0)}
@@ -172,7 +193,9 @@ def phase_build() -> dict:
 
 _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked",
           "gate_words_kernelILi2E": "counting", "probe_floor_kernelIjE": "floor_words",
-          "probe_floor_kernelIhE": "floor_counters"}
+          "probe_floor_kernelIhE": "floor_counters",
+          "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
+          "snv_site_rows_kernelILi0E": "site_plain", "snv_site_rows_kernelILi1E": "site_blocked"}
 
 
 def ptxas_resources(log: str) -> dict:
@@ -205,10 +228,10 @@ def ptxas_resources(log: str) -> dict:
 def phase_resources() -> dict:
     import torch
 
-    from ntedit_tpu_torch.ops import gate_kernel
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
-    res = ptxas_resources(gate_kernel.build_log())
-    for form, blocks in gate_kernel.occupancy().items():
+    res = {**ptxas_resources(gate_kernel.build_log()), **ptxas_resources(snv_kernel.build_log())}
+    for form, blocks in {**gate_kernel.occupancy(), **snv_kernel.occupancy()}.items():
         res.setdefault(form, {})["blocks_per_sm"] = blocks
     if any(r.get("blocks_per_sm", 0) <= 0 for r in res.values()):
         raise RuntimeError(f"a kernel form cannot be resident: {res}")
@@ -268,6 +291,41 @@ def _kernel_lengths(k: int, full: int) -> list:
     return out
 
 
+def site_heads(words, draft: np.ndarray, n: int, k: int):
+    """Sorted heads to ask site rows for: the candidates in ``words`` plus
+    heads at both contig ends (0, n-k-1 the last valid row, n-k, n-1), on
+    both sides of a tile edge, and 2k, 2k-1, k and 1 bytes before, and at,
+    the first N and IUPAC bytes."""
+    import torch
+
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    t = gate_kernel.TILE
+    extra = [0, n - k - 1, n - k, n - 1, t - 1, t]
+    for e in np.flatnonzero(~np.isin(draft & 0xDF, np.frombuffer(b"ACGT", np.uint8)))[:6]:
+        extra += [int(e) - 2 * k, int(e) - 2 * k + 1, int(e) - k, int(e) - 1, int(e)]
+    extra = torch.tensor([h for h in extra if 0 <= h < n], dtype=torch.int64, device=words.device)
+    return torch.unique(torch.cat([flag.positions_on_device(words), extra]))
+
+
+def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
+    """The SNV kernels vs their plain versions on one input: (differing
+    candidate words, site cases, differing site rows)."""
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    got = snv_kernel.snv_cand_words(seq_dev, n, df)
+    want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
+    words = int((got != want).sum())
+    cand = site_heads(want, draft, n, df.k)
+    rows = 0
+    for jump in jumps:
+        got = snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump)
+        want = snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump)
+        rows += int((got != want).any(1).sum())
+    return words, len(jumps), rows
+
+
 def phase_kernel() -> dict:
     import torch
 
@@ -280,11 +338,16 @@ def phase_kernel() -> dict:
     truth = simulate.random_genome(40_000, seed=70)
     draft, _ = simulate.inject_errors(truth, sub_rate=3e-3, seed=71)
     draft = decorate(draft, rng, n_runs=4, n_iupac=40, lower=700)
-    n_cases = differing = 0
+    # the last head's tail bears an alternate: a stretch of the truth, its last base changed
+    draft[-60:] = truth[1000:1060]
+    draft[-1] = b"ACGT"[(b"ACGT".index(int(truth[1059])) + 1) % 4]
+    count = {"cases": 0, "differing_words": 0, "cand_cases": 0, "cand_differing_words": 0,
+             "site_cases": 0, "site_differing_rows": 0}
     bad = []
 
     def check_all(k, filters, lengths):
-        nonlocal n_cases, differing
+        # the site kernel's plain version loops over strides x k: jump 1 only at small k
+        jumps = sorted({1, 3, k}) if k <= 40 else [k]
         for name, df, p in filters:
             for L in lengths:
                 n = L - k + 1
@@ -293,10 +356,20 @@ def phase_kernel() -> dict:
                 seq_dev = buf.to(dev)
                 for snv in (False, True):
                     diff = check_kernel(seq_dev, n, df, snv, p)
-                    n_cases += 1
-                    differing += diff
+                    count["cases"] += 1
+                    count["differing_words"] += diff
                     if diff:
                         bad.append({"k": k, "filter": name, "L": L, "snv": snv, "words": diff})
+                if df.counting or p != 1:
+                    continue
+                words, site_cases, rows = check_snv_kernels(seq_dev, draft[:L], n, df, jumps)
+                count["cand_cases"] += 1
+                count["cand_differing_words"] += words
+                count["site_cases"] += site_cases
+                count["site_differing_rows"] += rows
+                if words or rows:
+                    bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
+                                "site_rows": rows})
 
     # k = 1; 33 and 34 cross the 33-bit half of srol; the largest k taken
     for k in (1, 17, 25, 33, 34, 40, gate_kernel.MAX_K):
@@ -311,33 +384,35 @@ def phase_kernel() -> dict:
     del big_df
     torch.cuda.empty_cache()
     if bad:
-        raise AssertionError(f"gate kernel differs from its plain version: {bad}")
-    return {"phase": "kernel", "cases": n_cases, "differing_words": differing}
+        raise AssertionError(f"a kernel differs from its plain version: {bad}")
+    return {"phase": "kernel", **count}
 
 
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path against the host-only full scan
 # ---------------------------------------------------------------------------
 
-def reference_outputs(host_bf, draft_path: str, prefix: str, cfg) -> None:
+def reference_outputs(host_bf, draft_path: str, prefix: str, cfg, threads: int = 1) -> None:
     """The host-only full sequential scan of the port's C++ engine (no
-    gate hint, one thread), rendered by the CLI's writers."""
+    gate hint, one thread per contig, ``threads`` contigs at a time: ctypes
+    releases the GIL), rendered by the CLI's writers."""
     from ntedit_tpu_torch.engine import native_repair
     from ntedit_tpu_torch.io import fastx, writers
 
     counting = hasattr(host_bf, "counters")
+    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        results = list(ex.map(lambda r: native_repair.polish_contig_native(
+            host_bf, None, cfg, r.header, r.seq), recs))
     with open(prefix + "_edited.fa", "w") as dfout, \
          open(prefix + "_changes.tsv", "w") as rfout, \
          open(prefix + "_variants.vcf", "w") as vfout:
         rfout.write(writers.changes_tsv_header(cfg.k, cfg.jump, counting))
         vfout.write(writers.vcf_header(draft_path))
-        for rec in fastx.read_fastx(draft_path):
-            if len(rec.seq) < cfg.min_contig_len:
-                continue
-            res = native_repair.polish_contig_native(host_bf, None, cfg, rec.header, rec.seq)
+        for rec, res in zip(recs, results):
             if res is None:
                 raise RuntimeError(f"host engine failed on {rec.header}")
-            writers.write_contig(res, dfout, rfout, vfout, {})
+            writers.write_contig(res, dfout, rfout, vfout, {}, snv=cfg.snv)
 
 
 def _same_outputs(a: str, b: str) -> dict:
@@ -373,6 +448,8 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_arg
               *cli_args])
     wall = time.perf_counter() - t0
     launches = gate_kernel.gate_words.launches
+    with open(prefix + "_changes.tsv") as f:
+        records = sum(1 for _ in f) - 1
     ref_prefix = prefix + "_ref"
     t0 = time.perf_counter()
     reference_outputs(bloom.load_any(bf_path), draft_path, ref_prefix, cfg)
@@ -387,7 +464,8 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_arg
                 resid[kk] = resid.get(kk, 0) + v
     bases = sum(len(r.seq) for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len)
     out = {"phase": tag, "bp": bases, "wall_s": wall, "bp_per_s": bases / wall,
-           "launches": launches, "reference_full_scan_s": ref_s, "filter_save_s": save_s,
+           "launches": launches, "records": records, "reference_full_scan_s": ref_s,
+           "filter_save_s": save_s,
            "byte_identical": same, "residual_vs_truth": resid}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
@@ -487,7 +565,7 @@ def phase_main(work: str) -> list:
     return out
 
 
-def phase_counting(work: str) -> dict:
+def phase_counting(work: str) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.utils import simulate
@@ -505,32 +583,234 @@ def phase_counting(work: str) -> dict:
     # half's errors are absent and get repaired
     simulate.fill_counts(cbf, drafts[0][: length // 2])
     cfg = EngineConfig(k=k, hash_num=3, threads=1, min_threshold=2, max_threshold=254).validate()
-    return run_and_check("counting", work, cbf, draft_path, truths,
-                         ["-t", "8", "-p", "2", "-q", "254"], cfg)
+    args = ["-t", "8", "-p", "2", "-q", "254"]
+    out = [run_and_check("counting", work, cbf, draft_path, truths, args, cfg)]
+    # SNV mode with a filter the candidate kernel does not take: the gate
+    # kernel with snv on hints every valid head to the whole-contig engine
+    snv_cfg = dataclasses.replace(cfg, snv=True).validate()
+    out.append(run_and_check("counting_snv", work, cbf, draft_path, truths, args + ["-s", "1"],
+                             snv_cfg))
+    if out[1]["records"] <= 0:
+        raise AssertionError("counting_snv: no SNV record")
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 5: numbers
+# phase 5: SNV mode
 # ---------------------------------------------------------------------------
 
-def probed_sectors(seq_dev, n: int, df, min_threshold: int) -> tuple:
-    """(sectors, live heads, probes): the distinct 32-byte DRAM sectors of
-    the filter that the gate pass must read for these heads, the number of
-    heads it probes (valid, not forced) and the probes it makes.  Plain and
-    counting stop at the first deciding probe, as the kernel does: a clear
-    bit, or a counter below max(min_threshold, 1)."""
+def make_snv_genome(lengths, seed: int):
+    """(references, variants): seeded reference contigs with a few N runs,
+    IUPAC bytes and a lowercase stretch, and for each a copy of the clean
+    reference with substitutions only, about 1 per kbp: the genome whose
+    k-mers the filter holds.  Also the number of substitutions."""
+    from ntedit_tpu_torch.utils import simulate
+
+    rng = np.random.default_rng(seed)
+    refs, variants, planted = [], [], 0
+    for i, L in enumerate(lengths):
+        t = simulate.random_genome(L, seed=seed + 2 * i)
+        v, r = t, t
+        if L > 1000:
+            v, edits = simulate.inject_errors(t, sub_rate=1e-3, ins_rate=0.0, del_rate=0.0,
+                                              seed=seed + 2 * i + 1)
+            planted += len(edits)
+            r = decorate(t, rng, n_runs=max(1, L // 5_000_000), n_iupac=max(1, L // 1_000_000),
+                         lower=min(2000, L // 10))
+        refs.append(r)
+        variants.append(v)
+    return refs, variants, planted
+
+
+def run_snv_engine(tag: str, work: str, bf_path: str, draft_path: str, site_rows: bool) -> dict:
+    """``engine -s 1 -t 8``: through the command line with the device's
+    site rows (its default), or through the function the command line calls
+    with the rows off, for which it has no flag.  The launch counts are set
+    to 0 just before and read just after."""
+    from ntedit_tpu_torch import cli
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    prefix = os.path.join(work, tag)
+    snv_kernel.snv_cand_words.launches = snv_kernel.snv_site_rows.launches = 0
+    t0 = time.perf_counter()
+    if site_rows:
+        cli.main(["engine", "-r", bf_path, "-f", draft_path, "-b", prefix, "--device", "cuda",
+                  "-s", "1", "-t", "8"])
+    else:
+        cli._run_engine(bf_path, draft_path, prefix, s=1, threads=8, device="cuda",
+                        site_rows=False)
+    wall = time.perf_counter() - t0
+    with open(prefix + "_changes.tsv") as f:
+        records = sum(1 for _ in f) - 1
+    return {"prefix": prefix, "site_rows": site_rows, "wall_s": wall, "records": records,
+            "cand_launches": snv_kernel.snv_cand_words.launches,
+            "site_launches": snv_kernel.snv_site_rows.launches}
+
+
+def snv_time_split(host_bf, draft_path: str, threads: int) -> dict:
+    """The SNV path's stages one at a time, none overlapped: the candidate
+    pass of every contig, the candidate and site-row pass, the threaded
+    repair from the candidates without and with the rows (each of these
+    twice, in turns), and rendering.  Then Polisher.polish over the draft,
+    two contigs in flight as the command line runs it, with the rows and
+    without, twice each in turns: the engine's share of the CLI's wall."""
+    import io
+
+    from ntedit_tpu_torch.engine import flag, native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx, writers
+
+    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, snv=True, threads=threads).validate()
+    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
+    pol = Polisher(host_bf, None, cfg, device="cuda")
+    out = {}
+    flag.snv_site_data(min(recs, key=lambda r: len(r.seq)).seq, pol.df, cfg.jump)  # warm
+    # candidates, with rows, with rows, candidates: the lesser of each pair
+    passes = {"candidate_pass_s": lambda r: (flag.snv_candidate_positions(r.seq, pol.df), None),
+              "candidate_and_rows_pass_s": lambda r: flag.snv_site_data(r.seq, pol.df, cfg.jump)}
+    got = {}
+    for name in ("candidate_pass_s", "candidate_and_rows_pass_s", "candidate_and_rows_pass_s",
+                 "candidate_pass_s"):
+        t0 = time.perf_counter()
+        got[name] = [passes[name](r) for r in recs]
+        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
+    cands = [c for c, _ in got["candidate_pass_s"]]
+    data = got["candidate_and_rows_pass_s"]
+    out["candidates"] = int(sum(len(c) for c in cands))
+    out["valid_rows"] = int(sum(int((rows[:, 0] & 1).sum()) for _, rows in data))
+    if any(not np.array_equal(c, d[0]) for c, d in zip(cands, data)):
+        raise AssertionError("snv_site_data and snv_candidate_positions differ in their candidates")
+    # without rows, with, with, without: the lesser of each pair
+    all_rows = {"repair_s": [None] * len(recs), "repair_with_rows_s": [d[1] for d in data]}
+    results = {}
+    for name in ("repair_s", "repair_with_rows_s", "repair_with_rows_s", "repair_s"):
+        t0 = time.perf_counter()
+        results[name] = [native_repair.polish_contig_segmented(
+            host_bf, None, cfg, r.header, r.seq, c, threads=threads, allow_snv=True, site_rows=w)
+            for r, c, w in zip(recs, cands, all_rows[name])]
+        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sinks = [io.StringIO() for _ in range(3)]
+    for res in results["repair_with_rows_s"]:
+        writers.write_contig(res, *sinks, {}, snv=True)
+    out["render_s"] = time.perf_counter() - t0
+    engines = {"polish_rows_s": pol,
+               "polish_no_rows_s": Polisher(host_bf, None, cfg, device="cuda", site_rows=False)}
+    for name in ("polish_rows_s", "polish_no_rows_s", "polish_no_rows_s", "polish_rows_s"):
+        t0 = time.perf_counter()
+        for _res in engines[name].polish((r.header, r.seq) for r in recs):
+            pass
+        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
+    del engines
+    out.update(device_share(pol, recs))
+    return out
+
+
+def phase_snv(work: str) -> list:
+    import torch
+
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.engine.config import EngineConfig
+
+    def site_kernel(host_bf, seq):
+        dev = torch.device("cuda")
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
+        return snv_site_numbers(seq, bloom.DeviceFilter.from_host(host_bf, dev), cfg.jump, flush)
+
+    k = 25
+    lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # main_blocked's
+    t0 = time.perf_counter()
+    refs, variants, planted = make_snv_genome(lengths, seed=700)
+    draft_path = os.path.join(work, "ref50.fa")
+    write_fasta(draft_path, refs)
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blk = bloom.BlockedKmerBloomFilter.zeros(bloom.pow2_size_bytes(sum(lengths), 3, 0.001), 3, k)
+    for v in variants:
+        blk.insert_seq(v)
+    build_s = time.perf_counter() - t0
+    bf_path = os.path.join(work, "snv_blocked.bf")
+    blk.save(bf_path)
+    cfg = EngineConfig(k=k, hash_num=3, snv=True, threads=1).validate()
+    bases = sum(L for L in lengths if L >= cfg.min_contig_len)
+
+    def checked(tag, bp, runs, ref_s, same, extra):
+        row = {"phase": tag, "bp": bp, "runs": runs, "reference_full_scan_s": ref_s,
+               "byte_identical": same, **extra}
+        for r in runs:
+            r["bp_per_s"] = bp / r["wall_s"]
+            if r["cand_launches"] <= 0 or (r["site_rows"] and r["site_launches"] <= 0):
+                raise AssertionError(f"{tag}: an SNV kernel was never launched: {r}")
+            if not r["site_rows"] and r["site_launches"]:
+                raise AssertionError(f"{tag}: the run without rows launched the site kernel")
+            if r["records"] <= 0:
+                raise AssertionError(f"{tag}: no SNV record")
+        if not all(all(v.values()) for v in same.values()):
+            raise AssertionError(f"{tag}: SNV outputs differ: {same}")
+        return row
+
+    # the host-only scan visits every base: the contigs run side by side
+    t0 = time.perf_counter()
+    ref_prefix = os.path.join(work, "snv_blocked_ref")
+    reference_outputs(blk, draft_path, ref_prefix, cfg, threads=4)
+    ref_s = time.perf_counter() - t0
+    # with rows and without, twice each, in turns that favour neither
+    order = (True, False, False, True)
+    runs = [run_snv_engine(f"snv_{i}", work, bf_path, draft_path, rows)
+            for i, rows in enumerate(order)]
+    same = {"rows_vs_no_rows": _same_outputs(runs[0]["prefix"], runs[1]["prefix"]),
+            "rows_vs_full_scan": _same_outputs(runs[0]["prefix"], ref_prefix),
+            "no_rows_vs_full_scan": _same_outputs(runs[1]["prefix"], ref_prefix),
+            "repeats": {str(i): all(_same_outputs(runs[i]["prefix"], ref_prefix).values())
+                        for i in range(2, len(runs))}}
+    wall = {rows: float(np.mean([r["wall_s"] for r in runs if r["site_rows"] == rows]))
+            for rows in (True, False)}
+    out = [checked("snv_blocked", bases, runs, ref_s, same,
+                   {"mean_wall_s": {"rows": wall[True], "no_rows": wall[False]},
+                    "faster": "rows" if wall[True] < wall[False] else "no_rows",
+                    "planted_variants": planted, "simulate_s": sim_s, "filter_build_s": build_s,
+                    "filter_bytes": blk.bytes, "contigs": lengths, "reference": "full_scan_4_threads",
+                    "split": snv_time_split(blk, draft_path, 8),
+                    "site_kernel": site_kernel(blk, refs[0])})]
+    del blk
+    torch.cuda.empty_cache()
+    # the plain layout on the 5 Mbp contig alone
+    small_path = os.path.join(work, "ref5.fa")
+    write_fasta(small_path, refs[2:3])
+    pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(lengths[2], 3, 0.001), 3, k)
+    pl.insert_seq(variants[2])
+    pl_path = os.path.join(work, "snv_plain.bf")
+    pl.save(pl_path)
+    t0 = time.perf_counter()
+    ref_prefix = os.path.join(work, "snv_plain_ref")
+    reference_outputs(pl, small_path, ref_prefix, cfg)
+    ref_s = time.perf_counter() - t0
+    runs = [run_snv_engine("snv_plain_rows", work, pl_path, small_path, True)]
+    same = {"rows_vs_full_scan": _same_outputs(runs[0]["prefix"], ref_prefix)}
+    out.append(checked("snv_plain", lengths[2], runs, ref_s, same,
+                       {"filter_bytes": pl.bytes, "site_kernel": site_kernel(pl, refs[2])}))
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: numbers
+# ---------------------------------------------------------------------------
+
+def probe_cost(df, can, min_threshold: int = 1) -> tuple:
+    """(sector ids, probes) of probing the canonical hashes ``can``: the
+    32-byte DRAM sectors of the filter read, one tensor per probe round,
+    and the number of probes made.  Plain and counting stop at the first
+    deciding probe, as the kernels do: a clear bit, or a counter below
+    max(min_threshold, 1)."""
     import torch
 
     from ntedit_tpu_torch.core import nthash as nt
-    from ntedit_tpu_torch.ops import gate_kernel
 
-    s = seq_dev[: n + df.k - 1]
-    valid, iupac = gate_kernel.window_flags(s, n, df.k)
-    live = valid & ~iupac
-    n_live = int(live.sum())
-    can = nt.canonical(*nt.window_hashes(s, df.k))
     if df.blocked:
-        return int(torch.unique(((can & (df.modulus - 1)) >> 3)[live]).numel()), n_live, n_live
+        return [(can & (df.modulus - 1)) >> 3], can.numel()
+    live = torch.ones_like(can, dtype=torch.bool)
     sectors = []
     probes = 0
     for h in nt.extend(can, df.k, df.hash_num):
@@ -542,7 +822,59 @@ def probed_sectors(seq_dev, n: int, df, min_threshold: int) -> tuple:
         else:  # 256 bits per sector
             sectors.append((idx >> 8)[live])
             live = live & (((df.table[idx >> 5].long() & 0xFFFFFFFF) >> (idx & 31)) & 1 == 1)
-    return int(torch.unique(torch.cat(sectors)).numel()), n_live, probes
+    return sectors, probes
+
+
+def probed_sectors(seq_dev, n: int, df, min_threshold: int) -> tuple:
+    """(sectors, live heads, probes): the distinct 32-byte DRAM sectors of
+    the filter that the gate pass must read for these heads, the number of
+    heads it probes (valid, not forced) and the probes it makes."""
+    import torch
+
+    from ntedit_tpu_torch.core import nthash as nt
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    s = seq_dev[: n + df.k - 1]
+    valid, iupac = gate_kernel.window_flags(s, n, df.k)
+    live = valid & ~iupac
+    can = nt.canonical(*nt.window_hashes(s, df.k))
+    sectors, probes = probe_cost(df, can[live], min_threshold)
+    return int(torch.unique(torch.cat(sectors)).numel()), int(live.sum()), probes
+
+
+def snv_cand_probed(seq_dev, n: int, df) -> tuple:
+    """(sectors, live heads, probes) of the SNV candidate pass: three
+    alternates per valid head with no IUPAC byte."""
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+
+    valid, iupac = gate_kernel.window_flags(seq_dev[: n + df.k - 1], n, df.k)
+    live = valid & ~iupac
+    can = torch.cat([c[live & allowed] for _b, allowed, c in
+                     snv_kernel.alternate_hashes(seq_dev, n, df.k)])
+    sectors, probes = probe_cost(df, can)
+    return int(torch.unique(torch.cat(sectors)).numel()), int(live.sum()), probes
+
+
+def snv_site_probed(seq_dev, n: int, cand, df, jump: int) -> tuple:
+    """(sectors, valid rows, probes) of the SNV site pass: per valid row the
+    four pre-checks at the head, five probes per stride window that holds
+    the site and one for the window past it."""
+    import torch
+
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    k = df.k
+    valid, windows = snv_kernel.site_windows(seq_dev, n, cand, k, jump)
+    cans = []
+    for item, c, can in windows:
+        past = item > 0 and 1 + (item - 1) * jump > k - 1  # the window starts past the site
+        if (item == 0 and c < 0) or (past and c >= 0):
+            continue  # not probed
+        cans.append(can)
+    sectors, probes = probe_cost(df, torch.cat(cans))
+    return int(torch.unique(torch.cat(sectors)).numel()), int(valid.sum()), probes
 
 
 def time_cuda(fn, reps: int, flush) -> float:
@@ -562,10 +894,94 @@ def time_cuda(fn, reps: int, flush) -> float:
     return float(np.median(times))
 
 
+def yardsticks(table, probes: int, threads: int, batch: int, flush) -> tuple:
+    """(floor ms, take ms): the probe floor at ``probes`` random probes of
+    ``table`` from ``threads`` threads with ``batch`` loads in flight, and
+    a torch.take gather of as many random words."""
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads, batch), 20, flush)
+    idx = torch.randint(0, table.numel(), (probes,), device=table.device)
+    return floor_ms, time_cuda(lambda: torch.take(table, idx), 10, flush)
+
+
+def snv_cand_numbers(seq_dev, n: int, L: int, df, flush) -> dict:
+    """The SNV candidate kernel on the chunk against its plain version, its
+    bytes bound, the probe floor at its own probe count and loads in
+    flight, and a torch.take gather of as many random words."""
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    got = snv_kernel.snv_cand_words(seq_dev, n, df)
+    want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
+    diff = int((got != want).sum())
+    err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
+    if diff or err:
+        raise AssertionError("SNV candidate kernel differs from plain at the chunk shape")
+    sectors, live, probes = snv_cand_probed(seq_dev, n, df)
+    nbytes = L + 4 * (-(-n // 32)) + 32 * sectors
+    floor_ms, take_ms = yardsticks(df.table, probes, -(-n // 32),
+                                   snv_kernel.CAND_BATCH[df.layout], flush)
+    ms = time_cuda(lambda: snv_kernel.snv_cand_words(seq_dev, n, df), 20, flush)
+    plain_ms = time_cuda(lambda: snv_kernel.snv_cand_words_plain(seq_dev, n, df), 3, flush)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"heads": n, "live_heads": live, "probes": probes, "sectors": sectors,
+            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
+            "ms_over_floor": ms / floor_ms, "differing_words": diff, "max_abs_err": err}
+
+
+def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
+    """The SNV site kernel at the shape the SNV path gives it: one launch on
+    all the candidates of the contig ``seq``.  The rows the path's own pass
+    brings back (flag.snv_site_data) and the kernel's on the same candidates
+    are held to the plain version; then the kernel's ms, the plain
+    version's, the bytes bound, the probe floor (a warp per candidate, the
+    kernel's loads in flight) and a torch.take gather of as many words."""
+    import torch
+
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+
+    n = len(seq) - df.k + 1
+    cand_host, path_rows = flag.snv_site_data(seq, df, jump)
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: len(seq)] = torch.from_numpy(seq.copy())
+    seq_dev = buf.to(df.device)
+    cand = torch.from_numpy(cand_host).to(df.device)
+    g = int(cand.numel())
+    if not g:
+        raise AssertionError("the contig gave no SNV candidate")
+    got = snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump)
+    want = snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump)
+    diff = int((got != want).any(1).sum())
+    path_diff = int((torch.from_numpy(path_rows).to(df.device) != want).any(1).sum())
+    err = int((got.long() - want.long()).abs().max())
+    if diff or path_diff or err:
+        raise AssertionError(f"SNV site kernel differs from plain at the contig shape: "
+                             f"{diff} rows, {path_diff} of the path's own")
+    sectors, valid, probes = snv_site_probed(seq_dev, n, cand, df, jump)
+    # the candidates' list and rows, the 2k bytes of each (overlaps once), the sectors
+    seq_bytes = int(torch.clamp(cand[1:] - cand[:-1], max=2 * df.k).sum()) + 2 * df.k
+    nbytes = 8 * g + 6 * g + seq_bytes + 32 * sectors
+    floor_ms, take_ms = yardsticks(df.table, probes, 32 * g, snv_kernel.SITE_BATCH, flush)
+    ms = time_cuda(lambda: snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump), 20, flush)
+    plain_ms = time_cuda(lambda: snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump),
+                         1, flush)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"heads": n, "candidates": g, "valid_rows": valid, "jump": jump, "probes": probes,
+            "sectors": sectors, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "floor_ms": floor_ms, "take_ms": take_ms,
+            "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
+            "differing_rows": diff, "path_differing_rows": path_diff, "max_abs_err": err}
+
+
 def phase_numbers(power: str) -> dict:
     """The gate pass at the main path's chunk shape (2^22 heads, k=25)
     with the filters of a 50 Mbp assembly (256 MiB blocked), for the
-    blocked, plain and counting layouts."""
+    blocked, plain and counting layouts, and the SNV candidate pass for the
+    first two."""
     import torch
 
     from ntedit_tpu_torch.core import bloom
@@ -585,6 +1001,7 @@ def phase_numbers(power: str) -> dict:
     seq_dev = buf.to(dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
     rows = {}
+    snv_rows = {}
     for name, hf in simulate.chunk_filters(truth, k, GENOME).items():
         df = bloom.DeviceFilter.from_host(hf, dev)
         p = 3 if name == "counting" else 1
@@ -594,9 +1011,7 @@ def phase_numbers(power: str) -> dict:
         err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
         if diff or err:
             raise AssertionError(f"{name}: kernel differs from plain at the chunk shape")
-        before = gate_kernel.gate_words.launches
         ms = time_cuda(lambda: gate_kernel.gate_words(seq_dev, n, df, False, p), 20, flush)
-        gate_kernel.gate_words.launches = before  # timing launches are not the path's
         plain_ms = time_cuda(lambda: gate_kernel.gate_words_plain(seq_dev, n, df, False, p),
                              3, flush)
         sectors, live, probes = probed_sectors(seq_dev, n, df, p)
@@ -616,6 +1031,8 @@ def phase_numbers(power: str) -> dict:
         idx = torch.randint(0, table.numel(), (n,), device=dev)
         take_ms = time_cuda(lambda: torch.take(table, idx), 10, flush)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if name != "counting":
+            snv_rows[name] = snv_cand_numbers(seq_dev, n, L, df, flush)
         rows[name] = {"heads": n, "live_heads": live, "probes": probes,
                       "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms, "floor_ms": floor_ms,
                       "sectors": sectors, "bytes": nbytes, "bound_ms": bound_ms,
@@ -624,7 +1041,7 @@ def phase_numbers(power: str) -> dict:
                       "filter_bytes": hf.bytes}
         del df, table, idx
         torch.cuda.empty_cache()
-    return {"phase": "numbers", "power_limit": power, "layouts": rows,
+    return {"phase": "numbers", "power_limit": power, "layouts": rows, "snv": snv_rows,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
@@ -659,16 +1076,22 @@ def main() -> int:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             main_rows.append(row)
             emit(row)
-        row = phase_counting(work)
-        main_rows.append(row)
-        emit(row)
+        for row in phase_counting(work):
+            main_rows.append(row)
+            emit(row)
+        torch.cuda.reset_peak_memory_stats()
+        snv_rows = phase_snv(work)
+        for row in snv_rows:
+            row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            emit(row)
     torch.cuda.reset_peak_memory_stats()
     numbers = phase_numbers(power)
     emit(numbers)
     blk = numbers["layouts"]["blocked"]
     differing = kernel["differing_words"] + sum(
         r["differing_words"] for r in numbers["layouts"].values())
-    emit({"kernels": [{
+    snv_run = snv_rows[0]["runs"][0]  # the 50 Mbp SNV run with site rows
+    lines = [{
         "name": "gate_words",
         "route": "cuda",
         "source": "ntedit_tpu_torch/csrc/gate_kernel.cu",
@@ -686,7 +1109,36 @@ def main() -> int:
         "layouts": {name: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
                                                    "plain_ms")}
                     for name, r in numbers["layouts"].items()},
-    }], "power_limit": power, "seconds": time.perf_counter() - t_start})
+    }]
+    # the candidate kernel at the chunk shape; the site kernel at the contig
+    # shape of the SNV runs (30 Mbp blocked, 5 Mbp plain), one launch each
+    site_parts = {"blocked": snv_rows[0]["site_kernel"], "plain": snv_rows[1]["site_kernel"]}
+    for name, parts, replaces, launches, cases_diff, diff_key in (
+            ("snv_cand_words", numbers["snv"], "ntedit_tpu/engine/flag.py:351",
+             snv_run["cand_launches"], kernel["cand_differing_words"], "differing_words"),
+            ("snv_site_rows", site_parts, "ntedit_tpu/engine/flag.py:425",
+             snv_run["site_launches"], kernel["site_differing_rows"], "differing_rows")):
+        one = parts["blocked"]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ntedit_tpu_torch/csrc/snv_kernel.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "matches_plain": cases_diff + sum(r[diff_key] for r in parts.values()) == 0,
+            "max_abs_err": one["max_abs_err"],
+            "ms": one["ms"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "take_ms": one["take_ms"],
+            "floor_ms": one["floor_ms"],
+            "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
+                                                         "plain_ms")}
+                        for layout, r in parts.items()},
+        })
+    emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

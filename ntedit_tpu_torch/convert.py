@@ -1,7 +1,8 @@
 """Carry a filter across from the JAX package: its filter arrays, passed as
 numpy, become the port's host filter and DeviceFilter.  For this system the
 filter is the state that stands where a model's weights would, so both
-packages then probe the same bits."""
+packages then probe the same bits.  SNV mode adds no state of its own: its
+candidate and site passes read the same filters."""
 
 from __future__ import annotations
 

@@ -57,7 +57,7 @@
 // more probes in flight than the DRAM serves.
 //
 // The plain and counting layouts reduce a 64-bit hash modulo the filter
-// size with a multiply by a reciprocal computed on the host (fastmod below,
+// size with a multiply by a reciprocal computed on the host (fastmod in nthash.cuh,
 // ops/gate_kernel.py::mod_magic) instead of a 64-bit '%'.  The blocked
 // layout keeps its power-of-two mask.  The shared-memory tile has a row
 // pitch of 36 bytes per thread's 32: lanes t..t+31 reading the same
@@ -66,210 +66,21 @@
 // a 2^22-head chunk is 512 blocks, one wave on the 132 SMs.  Every index is
 // 64-bit.
 //
+// The hashing, the filter probe and the tile are shared with the SNV
+// kernels through nthash.cuh.
+//
 // probe_floor_kernel, below, is a measuring stick and not on any path: the
 // same number of threads each making the same number of random probes of
 // the same table with (by default) kBatch loads in flight, and nothing else.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "nthash.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;               // threads per block
-constexpr int kHeads = 32;                  // heads per thread: one gate word
-constexpr int kTile = kThreads * kHeads;    // heads per block
-constexpr int kHalo = 1024;                 // bytes a block may read past its tile
+using namespace nth;
+
 constexpr int kBatch = 2;                   // heads hashed before their probes issue
 constexpr int kMaxFloorBatch = 8;           // the floor kernel's deepest batch
-constexpr int kRowStride = 36;              // shared bytes per thread's 32 (9 words: odd)
-constexpr int kRows = (kTile + kHalo) / kHeads;
-constexpr int kMinBlocks = 4;               // resident blocks per SM to fit in registers
-
-constexpr uint64_t kSeedA = 0x3C8BFBB395C60474ULL;
-constexpr uint64_t kSeedC = 0x3193C18562A02B4CULL;
-constexpr uint64_t kSeedG = 0x20323ED082572324ULL;
-constexpr uint64_t kSeedT = 0x295549F54BE24456ULL;
-constexpr uint64_t kMultiSeed = 0x90B45D39FB6DA1FAULL;
-constexpr unsigned kMultiShift = 27;
-constexpr uint64_t kLow33 = 0x1FFFFFFFFULL;
-// bit (letter - 64) set for each letter of "ATGCRYSWKMBDHV" (isAcceptedBase)
-constexpr uint32_t kAcceptedMask = 0x2dc299e;
-
-enum Layout { kPlain = 0, kBlocked = 1, kCounting = 2 };
-
-__device__ __forceinline__ uint64_t srol1(uint64_t x)
-{
-	uint64_t m = ((x & 0x8000000000000000ULL) >> 30) | ((x & 0x100000000ULL) >> 32);
-	return ((x << 1) & 0xFFFFFFFDFFFFFFFFULL) | m;
-}
-
-// inverse of srol1: rotate the 33-bit low and 31-bit high parts right by one
-__device__ __forceinline__ uint64_t sror1(uint64_t x)
-{
-	uint64_t lo = x & kLow33, hi = x >> 33;
-	lo = (lo >> 1) | ((lo & 1) << 32);
-	hi = (hi >> 1) | ((hi & 1) << 30);
-	return (hi << 33) | lo;
-}
-
-__device__ uint64_t srol(uint64_t x, unsigned d)
-{
-	unsigned dl = d % 33, dh = d % 31;
-	uint64_t lo = x & kLow33, hi = x >> 33;
-	if (dl)
-		lo = ((lo << dl) | (lo >> (33 - dl))) & kLow33;
-	if (dh)
-		hi = ((hi << dh) | (hi >> (31 - dh))) & 0x7FFFFFFFULL;
-	return (hi << 33) | lo;
-}
-
-// 2-bit code of a byte: A/a 0, C/c 1, T/t 2, G/g 3 (other bytes alias)
-__device__ __forceinline__ unsigned code_of(unsigned c) { return (c >> 1) & 3; }
-
-// forward seed and complement seed of a code (btllib's SEED_TAB)
-__device__ uint64_t fwd_seed(unsigned code)
-{
-	switch (code & 3) {
-	case 0: return kSeedA;
-	case 1: return kSeedC;
-	case 2: return kSeedT;
-	default: return kSeedG;
-	}
-}
-
-__device__ uint64_t rev_seed(unsigned code)
-{
-	switch (code & 3) {
-	case 0: return kSeedT;
-	case 1: return kSeedG;
-	case 2: return kSeedA;
-	default: return kSeedC;
-	}
-}
-
-// bit 0: byte fails isAcceptedBase; bit 1: accepted but not ACGTacgt
-__device__ uint8_t byte_class(unsigned c)
-{
-	unsigned fold = c & 0xDF;
-	bool accepted = fold >= 65 && fold <= 90 && ((kAcceptedMask >> (fold - 64)) & 1);
-	bool acgt = fold == 'A' || fold == 'C' || fold == 'G' || fold == 'T';
-	return accepted ? (acgt ? 0 : 2) : 1;
-}
-
-// x mod m for any 64-bit x, given magic = floor((2^64 - 1) / m): the
-// estimate q = floor(x * magic / 2^64) is floor(x / m) or one less, so one
-// correction step gives the exact remainder (ops/gate_kernel.py::mod_magic;
-// tests/test_torch_gate_kernel.py holds this arithmetic to '%')
-__device__ __forceinline__ uint64_t fastmod(uint64_t x, uint64_t m, uint64_t magic)
-{
-	const uint64_t r = x - __umul64hi(x, magic) * m;
-	return r >= m ? r - m : r;
-}
-
-// NTM64 extension: hash j of a canonical hash (j > 0)
-__device__ __forceinline__ uint64_t extended(uint64_t can, uint64_t mult)
-{
-	const uint64_t t = can * mult;
-	return t ^ (t >> kMultiShift);
-}
-
-// *p through the read-only path when pred, else dflt; predicated, not
-// branched, so a batch of them issues back to back
-__device__ __forceinline__ uint32_t load_if(const uint32_t* p, uint32_t pred, uint32_t dflt)
-{
-	uint32_t v = dflt;
-	asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.u32 %0, [%1];\n\t}"
-	    : "+r"(v) : "l"(p), "r"(pred));
-	return v;
-}
-
-__device__ __forceinline__ uint32_t load_if(const uint8_t* p, uint32_t pred, uint32_t dflt)
-{
-	uint32_t v = dflt;
-	asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q ld.global.nc.u8 %0, [%1];\n\t}"
-	    : "+r"(v) : "l"(p), "r"(pred));
-	return v;
-}
-
-struct Filter {
-	const void* table;
-	uint64_t modulus;  // words (blocked), bits (plain) or counters
-	uint64_t magic;    // mod_magic(modulus), plain and counting
-	int wbits;         // log2(words), blocked
-	int hash_num;
-	int k;
-	int min_threshold;
-};
-
-// bit i set when head i of the batch fails the filter: absent, or
-// (counting) below min_threshold.  Only heads in ``live`` are probed.
-template <int L>
-__device__ __forceinline__ uint32_t probe_batch(const uint64_t (&can)[kBatch], uint32_t live,
-                                                const Filter& f)
-{
-	if (L == kBlocked) {
-		const uint32_t* words = static_cast<const uint32_t*>(f.table);
-		uint32_t want[kBatch], got[kBatch];
-#pragma unroll
-		for (int i = 0; i < kBatch; ++i) {
-			uint32_t mask = 0;
-			for (int j = 0; j < f.hash_num; ++j)
-				mask |= 1u << ((can[i] >> (f.wbits + 5 * j)) & 31);
-			want[i] = mask;
-			got[i] = load_if(words + (can[i] & (f.modulus - 1)), (live >> i) & 1, 0);
-		}
-		uint32_t fail = 0;
-#pragma unroll
-		for (int i = 0; i < kBatch; ++i)
-			fail |= (uint32_t)((got[i] & want[i]) != want[i]) << i;
-		return fail & live;
-	}
-	// plain and counting: hash_num rounds, each of kBatch independent loads,
-	// each predicated on the heads the earlier rounds left undecided
-	if (L == kPlain) {
-		const uint32_t* words = static_cast<const uint32_t*>(f.table);
-		uint32_t present = live;
-#pragma unroll 1
-		for (int j = 0; j < f.hash_num && present; ++j) {
-			const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
-			uint32_t got[kBatch], bit[kBatch];
-#pragma unroll
-			for (int i = 0; i < kBatch; ++i) {
-				const uint64_t h = j ? extended(can[i], mult) : can[i];
-				const uint64_t idx = fastmod(h, f.modulus, f.magic);
-				bit[i] = (uint32_t)idx & 31;
-				got[i] = load_if(words + (idx >> 5), (present >> i) & 1, ~0u);
-			}
-#pragma unroll
-			for (int i = 0; i < kBatch; ++i)
-				present &= ~(((~got[i] >> bit[i]) & 1) << i);
-		}
-		return live & ~present;
-	}
-	const uint8_t* counters = static_cast<const uint8_t*>(f.table);
-	const uint32_t low = f.min_threshold > 1 ? (uint32_t)f.min_threshold : 1;
-	uint32_t open = live;  // heads whose minimum so far is still >= low
-#pragma unroll 1
-	for (int j = 0; j < f.hash_num && open; ++j) {
-		const uint64_t mult = (uint64_t)j ^ ((uint64_t)f.k * kMultiSeed);
-		uint32_t got[kBatch];
-#pragma unroll
-		for (int i = 0; i < kBatch; ++i) {
-			const uint64_t h = j ? extended(can[i], mult) : can[i];
-			got[i] = load_if(counters + fastmod(h, f.modulus, f.magic), (open >> i) & 1, 255);
-		}
-#pragma unroll
-		for (int i = 0; i < kBatch; ++i)
-			open &= ~((uint32_t)(got[i] < low) << i);
-	}
-	return live & ~open;
-}
-
-// byte p of a thread's window stream: row (p / 32) past its own, column p % 32
-__device__ __forceinline__ unsigned tile_byte(const uint8_t* row, int p)
-{
-	return row[(p >> 5) * kRowStride + (p & 31)];
-}
 
 template <int L>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -279,33 +90,11 @@ gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv
 	__shared__ __align__(16) uint8_t tile[kRows * kRowStride];
 	__shared__ uint64_t roll_f[16], roll_r[16], seed_f[4], seed_r[4];
 	__shared__ uint8_t cls[256];
-	static_assert(kThreads == 256, "one thread per byte class");
 
 	const int k = f.k;
 	const unsigned t = threadIdx.x;
-	cls[t] = byte_class(t);
-	if (t < 16) {
-		roll_f[t] = srol(fwd_seed(t >> 2), k) ^ fwd_seed(t);
-		roll_r[t] = rev_seed(t >> 2) ^ srol(rev_seed(t), k);
-	}
-	if (t < 4) {
-		seed_f[t] = fwd_seed(t);
-		seed_r[t] = rev_seed(t);
-	}
-
-	// rows holding bytes [0, kTile + k - 1) of the block; 16-byte loads,
-	// four 4-byte stores each (a row's pitch is 36 bytes)
-	const uint64_t block_head = (uint64_t)blockIdx.x * kTile;
-	const int rows = kThreads + (kHeads - 2 + k) / kHeads;
-	const uint4* src = reinterpret_cast<const uint4*>(seq + block_head);
-	for (int u = t; u < 2 * rows; u += kThreads) {
-		const uint4 v = src[u];
-		uint32_t* dst = reinterpret_cast<uint32_t*>(tile + (u >> 1) * kRowStride + (u & 1) * 16);
-		dst[0] = v.x;
-		dst[1] = v.y;
-		dst[2] = v.z;
-		dst[3] = v.w;
-	}
+	fill_roll_tables(roll_f, roll_r, seed_f, seed_r, cls, k, t);
+	load_tile(tile, seq + (uint64_t)blockIdx.x * kTile, k, t);
 	__syncthreads();
 
 	const uint64_t word = (uint64_t)blockIdx.x * kThreads + t;
@@ -349,7 +138,7 @@ gate_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f, int snv
 			live |= (uint32_t)(ok && !force) << i;
 			forced |= (uint32_t)(ok && force) << i;
 		}
-		bits |= (forced | probe_batch<L>(can, live, f)) << b0;
+		bits |= (forced | probe_batch<L, kBatch>(can, live, f)) << b0;
 	}
 	out[word] = bits;
 }
@@ -386,8 +175,6 @@ probe_floor_kernel(const T* __restrict__ table, uint64_t size, uint64_t magic,
 	}
 	out[tid] = acc;
 }
-
-unsigned blocks_for(uint64_t threads) { return (unsigned)((threads + kThreads - 1) / kThreads); }
 
 }  // namespace
 

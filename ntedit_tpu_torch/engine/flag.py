@@ -1,4 +1,4 @@
-"""Dense gate pass: the device side of the polish path.
+"""Dense passes: the device side of the polish and SNV paths.
 
 For every window head of a draft contig the gate kernel
 (ops/gate_kernel.py) computes the reference's absence gate
@@ -7,16 +7,22 @@ on valid windows, plus a forced gate on windows that hold an accepted
 IUPAC byte, packed to little-endian uint32 words.  The contig uploads once
 as ASCII; the gate words stream back chunk by chunk so the host repair can
 start on chunk i while the device still computes chunk i+1.
+
+In SNV mode every head is gated, so the device computes which heads can
+matter instead (ops/snv_kernel.py): the candidate heads, where some
+alternate base's k-mer is in the filter, and optionally each candidate's
+site row, the probe results the host engine would otherwise gather itself.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from ntedit_tpu_torch.ops import gate_kernel
+from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
 # heads per streamed chunk (a multiple of the kernel's 8192-head tile)
 DEFAULT_CHUNK = 1 << 22
@@ -120,3 +126,75 @@ def flag_contig_gates(
     concatenated."""
     parts = [g for _, g in iter_gate_chunks(seq, df, snv, min_threshold, chunk)]
     return np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
+
+
+def positions_on_device(words: torch.Tensor) -> torch.Tensor:
+    """Little-endian packed words -> sorted int64 bit positions, on the
+    words' device; touches only the nonzero words."""
+    nz = torch.nonzero(words).squeeze(1)
+    lanes = torch.arange(32, dtype=torch.int32, device=words.device)
+    rows, cols = torch.nonzero((words[nz, None] >> lanes) & 1, as_tuple=True)
+    return nz[rows] * 32 + cols
+
+
+def _snv_candidates(seq: np.ndarray, df, chunk: int) -> tuple:
+    """(contig on the device, its sorted candidate heads on the device,
+    staging buffer): one upload, one candidate kernel per chunk, and the
+    candidate words compacted to positions with torch ops, so that only the
+    positions travel back.  On CUDA the work is queued on the current
+    stream, which the compaction waits for; the staging buffer must outlive
+    the upload."""
+    n = len(seq) - df.k + 1
+    chunk = _effective_chunk(n, chunk)
+    cuda = df.device.type == "cuda"
+    staged = _staged(seq, gate_kernel.padded_len(n), pin=cuda)
+    dev_seq = torch.empty(staged.numel(), dtype=torch.uint8, device=df.device)
+    dev_seq.copy_(staged, non_blocking=cuda)
+    words = [snv_kernel.snv_cand_words(dev_seq[start:], min(chunk, n - start), df)
+             for start in range(0, n, chunk)]
+    return dev_seq, positions_on_device(torch.cat(words)), staged
+
+
+def _on_stream(df, stream):
+    """Context that runs CUDA work on ``stream`` (a new one when None);
+    nothing on the CPU."""
+    if df.device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream if stream is not None else torch.cuda.Stream(df.device))
+
+
+def snv_candidate_positions(
+    seq: np.ndarray,
+    df,
+    chunk: int = DEFAULT_CHUNK,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> np.ndarray:
+    """Sorted SNV candidate heads of one contig: the heads where the engine
+    can produce a record or an edit (see ops/snv_kernel.py); every other
+    head is a no-op in SNV mode, so this is an exact hint.  Needs a blocked
+    or plain filter (Polisher._snv_fast_eligible)."""
+    if len(seq) < df.k:
+        return np.zeros(0, dtype=np.int64)
+    with _on_stream(df, stream):
+        _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk)
+        return cand.cpu().numpy()
+
+
+def snv_site_data(
+    seq: np.ndarray,
+    df,
+    jump: int,
+    chunk: int = DEFAULT_CHUNK,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> tuple:
+    """(candidate heads int64 [G], site rows uint8 [G, 6]), parallel
+    arrays: the candidates of snv_candidate_positions and, for each, the
+    row the engine consumes instead of probing (ops/snv_kernel.py), from
+    one site kernel over the contig's candidates."""
+    n = len(seq) - df.k + 1
+    if n <= 0:
+        return np.zeros(0, dtype=np.int64), np.zeros((0, 6), dtype=np.uint8)
+    with _on_stream(df, stream):
+        dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk)
+        rows = snv_kernel.snv_site_rows(dev_seq, n, cand, df, jump)
+        return cand.cpu().numpy(), rows.cpu().numpy()

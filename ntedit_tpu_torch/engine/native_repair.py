@@ -80,6 +80,12 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
             ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
         ]
+        # the same call with two more arrays parallel to the gates:
+        # gate_cand (uint8 per gate, not passed by the port yet) and
+        # site_rows (uint8[6] per gate, ops/snv_kernel.py)
+        lib.ntr_polish_contig_v2.restype = ctypes.c_int64
+        lib.ntr_polish_contig_v2.argtypes = (
+            lib.ntr_polish_contig.argtypes + [ctypes.c_void_p, ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -125,8 +131,11 @@ def _params_of(cfg: EngineConfig) -> _NtrParams:
 
 
 def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
-             rep_struct, params):
+             rep_struct, params, site_rows=None):
     """One ntr_polish_contig call with capacity retries.
+
+    ``site_rows``: uint8 [n_gates, 6] rows parallel to ``gates`` that the
+    engine consumes instead of probing (ops/snv_kernel.py), or None.
 
     ``contig`` is modified in place (it may be a view into a shared
     whole-contig buffer); every retry restores it from ``pristine`` first —
@@ -140,6 +149,12 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
         n_gates = gates.size
     else:
         gates_ptr, n_gates = None, 0
+    rows_ptr = None
+    if site_rows is not None:
+        if gates is None or site_rows.shape != (n_gates, 6):
+            raise ValueError(f"site rows {site_rows.shape} are not parallel to {n_gates} gates")
+        site_rows = np.ascontiguousarray(site_rows, dtype=np.uint8)
+        rows_ptr = site_rows.ctypes.data_as(ctypes.c_void_p).value
     subs_cap = max(4096, L // 64)
     nodes_cap = max(4096, L // 64)
     first = True
@@ -151,7 +166,7 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
         nodes_buf = np.empty(nodes_cap * 4, dtype=np.int64)
         n_subs = ctypes.c_int64(0)
         n_nodes = ctypes.c_int64(0)
-        rc = lib.ntr_polish_contig(
+        args = [
             contig.ctypes.data_as(ctypes.c_void_p).value, L,
             gates_ptr, n_gates,
             ctypes.byref(bf_struct),
@@ -161,7 +176,11 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
             ctypes.byref(n_subs),
             nodes_buf.ctypes.data_as(ctypes.c_void_p).value, nodes_cap,
             ctypes.byref(n_nodes),
-        )
+        ]
+        if rows_ptr is not None:
+            rc = lib.ntr_polish_contig_v2(*args, None, rows_ptr)
+        else:
+            rc = lib.ntr_polish_contig(*args)
         if rc == -2:
             subs_cap *= 4
             continue
@@ -218,16 +237,19 @@ def polish_contig_native(
     header: str,
     seq: bytes | np.ndarray,
     gate_hint: Optional[np.ndarray] = None,
+    site_rows: Optional[np.ndarray] = None,
 ) -> Optional[ContigResult]:
     """Run the native engine on one whole contig; with no ``gate_hint`` it
-    scans every head (the full sequential scan).  Returns None when the
+    scans every head (the full sequential scan).  ``site_rows`` are rows
+    parallel to ``gate_hint`` (see _run_raw).  Returns None when the
     engine reports an error."""
     lib = get_lib()
     bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
     params = _params_of(cfg.validate())
     seq_bytes = bytes(seq)
     contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
-    out = _run_raw(lib, contig, seq_bytes, gate_hint, bf_struct, rep_struct, params)
+    out = _run_raw(lib, contig, seq_bytes, gate_hint, bf_struct, rep_struct, params,
+                   site_rows=site_rows)
     if out is None:
         return None
     return _result(header, contig, *out)
@@ -254,15 +276,15 @@ def _gap_margin(cfg) -> tuple:
 
 
 def _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin):
-    """Closure running one segment: (lo, hi, abs_gates) -> (sb, nb) raw
-    arrays, "overflow" when activity reaches the right margin, or None on
-    engine failure."""
+    """Closure running one segment: (lo, hi, abs_gates[, rows]) -> (sb, nb)
+    raw arrays, "overflow" when activity reaches the right margin, or None
+    on engine failure."""
 
-    def run(lo: int, hi: int, seg_gates_abs: np.ndarray):
+    def run(lo: int, hi: int, seg_gates_abs: np.ndarray, seg_rows=None):
         view = contig[lo:hi]
         pristine = seq_bytes[lo:hi]
         out = _run_raw(lib, view, pristine, seg_gates_abs - lo, bf_struct,
-                       rep_struct, params)
+                       rep_struct, params, site_rows=seg_rows)
         if out is None:
             return None
         sb, nb = out
@@ -314,6 +336,94 @@ def _finish_segments(lib, header, seq_bytes, contig, all_gates, bf_struct,
     return ContigResult(header, bytearray(contig.tobytes()), RopeCells(total, nodes), subs)
 
 
+def _bucket_bounds(gates: np.ndarray, cfg, n_buckets: int) -> tuple:
+    """Group gates into <= n_buckets contiguous buckets cut only at quiet
+    gaps (> gap gate-free heads), balanced by gate count.  One native call
+    per bucket: within a bucket the engine fast-forwards across internal
+    gaps exactly like the whole-contig run, so only bucket BOUNDARIES need
+    the independence argument (and the trailing overflow guard).
+
+    Returns (idx_bounds, margin): idx_bounds is a list of (i0, i1) gate
+    index ranges."""
+    gap, margin = _gap_margin(cfg)
+    n = len(gates)
+    cuts = np.nonzero(np.diff(gates) > gap)[0] + 1  # legal cut indices
+    if n_buckets <= 1 or not len(cuts):
+        return [(0, n)], margin
+    targets = n * np.arange(1, n_buckets) / n_buckets
+    chosen = sorted({int(cuts[np.abs(cuts - t).argmin()]) for t in targets})
+    edges = [0] + chosen + [n]
+    return [
+        (edges[i], edges[i + 1])
+        for i in range(len(edges) - 1)
+        if edges[i + 1] > edges[i]
+    ], margin
+
+
+def polish_contig_segmented(
+    host_bloom,
+    host_bloomrep,
+    cfg: EngineConfig,
+    header: str,
+    seq: bytes | np.ndarray,
+    gates: np.ndarray,
+    threads: int = 4,
+    allow_snv: bool = False,
+    site_rows: Optional[np.ndarray] = None,
+) -> Optional[ContigResult]:
+    """Parallel exact repair from a complete gate list: independent
+    gate-run segments in threads.
+
+    Output is identical to the sequential native scan: segments are cut
+    only across gate-free gaps wider than any edit's influence, each
+    segment's repair is the sequential engine on its slice, and an
+    overflow guard falls back to the whole-contig sequential run if a
+    segment's activity ever reaches its right margin.  Returns None when
+    the engine reports an error.
+
+    ``allow_snv``: SNV mode gates every head, so cutting at gaps between
+    hints is only sound when the hints are the CANDIDATE set
+    (flag.snv_candidate_positions: heads between candidates are provably
+    no-ops); the Polisher sets this after checking eligibility, and an SNV
+    run without it raises.  ``site_rows``: rows parallel to ``gates``."""
+    if cfg.snv and not allow_snv:
+        raise ValueError("raw SNV gates every head: there are no quiet gaps to cut at")
+    lib = get_lib()
+    bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
+    cfg = cfg.validate()
+    params = _params_of(cfg)
+    seq_bytes = bytes(seq)
+    L = len(seq_bytes)
+    gates = np.ascontiguousarray(gates, dtype=np.int64)
+    if not len(gates):
+        return ContigResult(header, bytearray(seq_bytes), RopeCells(L), [])
+    if site_rows is not None and site_rows.shape != (len(gates), 6):
+        raise ValueError(f"site rows {site_rows.shape} are not parallel to {len(gates)} gates")
+
+    gap, _ = _gap_margin(cfg)
+    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
+    idx_bounds, margin = _bucket_bounds(gates, cfg, n_buckets=4 * threads)
+    if len(idx_bounds) == 1 or threads <= 1:
+        out = _run_raw(lib, contig, seq_bytes, gates, bf_struct, rep_struct, params,
+                       site_rows=site_rows)
+        if out is None:
+            return None
+        return _result(header, contig, *out)
+
+    runner = _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin)
+    jobs = []
+    for i0, i1 in idx_bounds:
+        lo = int(gates[i0])
+        hi = int(min(L, gates[i1 - 1] + gap))
+        jobs.append((lo, hi, gates[i0:i1], site_rows[i0:i1] if site_rows is not None else None))
+    with ThreadPoolExecutor(max_workers=min(threads, len(jobs))) as ex:
+        results = list(ex.map(lambda j: runner(*j), jobs))
+    return _finish_segments(
+        lib, header, seq_bytes, contig, gates, bf_struct, rep_struct, params,
+        [(j[0], j[1]) for j in jobs], results,
+    )
+
+
 def polish_contig_pipelined(
     host_bloom,
     host_bloomrep,
@@ -336,7 +446,8 @@ def polish_contig_pipelined(
     to, so a caller can reuse the dense pass as a hint if this engine
     returns None after the stream was (partially) drained."""
     if cfg.snv:
-        raise NotImplementedError("SNV mode is not ported yet (see ROADMAP.md)")
+        raise ValueError("the streamed repair cuts at quiet gaps, which raw SNV gates do "
+                         "not have: SNV candidates go to polish_contig_segmented")
     lib = get_lib()
     bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
     cfg = cfg.validate()

@@ -7,6 +7,12 @@ threaded native engine (engine/native_repair.py), which jumps over
 stretches the device proved clean and behaves exactly like the full
 sequential scan elsewhere.  The device computes chunk i+1's gates while
 -t host threads repair chunk i's segments.
+
+In SNV mode (-s 1) every head enters the engine's fix path, so the device
+computes the candidate heads instead (ops/snv_kernel.py): the only heads
+where a record or an edit can arise.  They are an exact hint for the
+segmented repair, and the site rows the device computes for them stand in
+for the engine's own probes.
 """
 
 from __future__ import annotations
@@ -46,20 +52,25 @@ class Polisher:
         cfg: Optional[EngineConfig] = None,
         chunk: int = flag.DEFAULT_CHUNK,
         device=None,
+        site_rows: bool = True,
     ):
+        """``site_rows``: in SNV mode, also compute each candidate's site
+        row on the device and hand it to the repair.  The outputs are the
+        same either way; on the card the run with rows measured no slower
+        end to end (PERF.md), so it is the default, and the keyword is the
+        one switch, for tests and chip_smoke.py to run both."""
         self.device = resolve_device(device)
         if cfg is None:
             cfg = EngineConfig(k=host_bloom.k, hash_num=host_bloom.hash_num)
         if cfg.k == 0:
             cfg = dataclasses.replace(cfg, k=host_bloom.k, hash_num=host_bloom.hash_num)
         self.cfg = cfg.validate()
-        if self.cfg.snv:
-            raise NotImplementedError(f"SNV mode (-s 1) {NOT_PORTED}")
         if self.cfg.verbose:
             raise NotImplementedError(f"verbose tracing (-v 1) {NOT_PORTED}")
         self.bloom = host_bloom
         self.bloomrep = host_bloomrep
         self.chunk = chunk
+        self.site_rows = site_rows
         self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
 
     def gate_positions(self, seq: np.ndarray) -> np.ndarray:
@@ -69,11 +80,51 @@ class Polisher:
             min_threshold=self.cfg.min_threshold, chunk=self.chunk,
         )
 
+    def _snv_fast_eligible(self) -> bool:
+        """The SNV candidate hint is exact only when the alternate
+        pre-check (contains && solid) is what the device computes and
+        gating decisions cannot arise elsewhere: non-counting filter, no
+        reject filter, mode != 2 (mode 2 bypasses the pre-check), mask off
+        (masking touches every no-fix position)."""
+        return (not self.df.counting and self.bloomrep is None
+                and self.cfg.mode != 2 and not self.cfg.mask)
+
+    def _snv_contig(self, header: str, seq: np.ndarray, stream) -> ContigResult:
+        """SNV mode.  Eligible runs: the device's candidates (and their
+        site rows) into the segmented repair with -t > 1, else into the
+        whole-contig engine.  Other runs: the gate pass with snv=True (every
+        valid head) as the whole-contig engine's hint."""
+        rows = None
+        res = None
+        if self._snv_fast_eligible():
+            if self.site_rows:
+                hint, rows = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
+                                                stream=stream)
+            else:
+                hint = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk, stream=stream)
+            if self.cfg.threads > 1:
+                res = native_repair.polish_contig_segmented(
+                    self.bloom, None, self.cfg, header, seq, hint,
+                    threads=self.cfg.threads, allow_snv=True, site_rows=rows)
+        else:
+            hint = self.gate_positions(seq)
+        if res is None:
+            res = native_repair.polish_contig_native(
+                self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint, site_rows=rows)
+        if res is None:
+            # the JAX package falls back to its wavefront engine here
+            raise NotImplementedError(
+                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
+        return res
+
     def polish_contig(self, header: str, seq: np.ndarray) -> ContigResult:
         """Stream the contig's gates from the device into the threaded
-        repair.  Each call runs its device work on a CUDA stream of its
-        own, so two contigs in flight never share one."""
+        repair (polish mode), or its SNV candidates into the segmented
+        repair (SNV mode).  Each call runs its device work on a CUDA stream
+        of its own, so two contigs in flight never share one."""
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if self.cfg.snv:
+            return self._snv_contig(header, seq, stream)
         streamed = []
         chunks = flag.iter_gate_chunks(
             seq, self.df, snv=False, min_threshold=self.cfg.min_threshold,

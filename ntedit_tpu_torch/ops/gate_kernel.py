@@ -37,8 +37,9 @@ BATCH = 2  # heads a thread hashes before their probes issue (csrc kBatch)
 LAYOUT_CODE = {"plain": 0, "blocked": 1, "counting": 2}
 MASK64 = (1 << 64) - 1
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "gate_kernel.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCE = os.path.join(CSRC, "gate_kernel.cu")
+HEADER = os.path.join(CSRC, "nthash.cuh")  # device code shared with the SNV kernels
 
 
 def padded_len(n: int) -> int:
@@ -115,18 +116,19 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: the gate kernel needs nvcc")
+        raise RuntimeError("no CUDA toolkit found: the kernels need nvcc")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def _command(src: str, out: str) -> list:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
+            "-Xptxas", "-v", "-I", CSRC, "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
 
 
 def build(force: bool = False) -> str:
-    """Compile the kernel (once per source content); returns the .so path."""
-    return build_library("gate_kernel", SOURCE, _command, force=force)
+    """Compile the kernel (once per content of the source and its header);
+    returns the .so path."""
+    return build_library("gate_kernel", SOURCE, _command, force=force, deps=(HEADER,))
 
 
 def build_log() -> str:

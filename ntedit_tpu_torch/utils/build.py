@@ -1,7 +1,8 @@
 """Build a C++ or CUDA source into a shared library, once per content.
 
 The library goes into the package's ``_build/`` directory (gitignored),
-named by a digest of the source and the command, so an edited source or
+named by a digest of every file the build reads (the source and the
+headers it includes) and of the command, so an edited source or header or
 changed flags build anew and an unchanged one loads the earlier build.
 A failed build raises with the compiler's output; a build that succeeds
 keeps it beside the library, as ``<library>.log``.
@@ -14,7 +15,7 @@ import os
 import platform
 import subprocess
 import threading
-from typing import Callable
+from typing import Callable, Sequence
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 
@@ -32,12 +33,16 @@ def host_cpu() -> str:
 
 
 def build_library(name: str, source: str, command: Callable[[str, str], list],
-                  force: bool = False, salt: str = "") -> str:
+                  force: bool = False, salt: str = "", deps: Sequence[str] = ()) -> str:
     """Compile ``source`` with ``command(source, output)`` (an argv list)
-    into ``_build/lib<name>-<digest>.so`` and return its path.  ``salt``
-    joins the digest, e.g. the host CPU for a ``-march=native`` build."""
-    with open(source, "rb") as f:
-        text = f.read()
+    into ``_build/lib<name>-<digest>.so`` and return its path.  ``deps``
+    are the other files the compiler reads (included headers): their
+    contents join the digest with the source's.  ``salt`` joins it too,
+    e.g. the host CPU for a ``-march=native`` build."""
+    text = b""
+    for path in (source, *deps):
+        with open(path, "rb") as f:
+            text += f.read() + b"\0"
     key = text + " ".join(command("", "")).encode() + salt.encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")

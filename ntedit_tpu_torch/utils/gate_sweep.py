@@ -1,6 +1,7 @@
 """The gate kernel and the card's random-probe floor, on one NVIDIA GPU.
 
     python -m ntedit_tpu_torch.utils.gate_sweep
+    python -m ntedit_tpu_torch.utils.gate_sweep --against OTHER_CHECKOUT
 
 Each line is one JSON object; times are medians over 10 launches with the
 L2 flushed before each.  Needs a CUDA device; prints the card's name and
@@ -19,10 +20,18 @@ power limit first.
   filters of a 50 Mbp assembly.  The builds take turns in 10 rounds, each
   round in a rotated order; per layout and build, the median and the
   rounds in which it beat the shipped build.
+
+With ``--against DIR`` it runs one comparison instead: the gate kernel of
+this checkout and the one built from ``DIR/ntedit_tpu_torch/csrc/
+gate_kernel.cu`` (another checkout of the repository, with the same C
+interface), both held bit-equal to the plain version, take turns in 10
+rounds on the same data; per layout, each build's median ms and the rounds
+this checkout won.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -136,12 +145,17 @@ def batch_builds() -> dict:
         path = os.path.join(build.BUILD_DIR, f"gate_kernel_batch{b}.cu")
         with open(path, "w") as f:
             f.write(re.sub(r"constexpr int kBatch = \d+;", f"constexpr int kBatch = {b};", src))
-        lib = build.build_library(f"gate_kernel_batch{b}", path, gate_kernel._command)
+        lib = build.build_library(f"gate_kernel_batch{b}", path, gate_kernel._command,
+                                  deps=(gate_kernel.HEADER,))
         libs[b] = gate_kernel.open_library(lib, b)
     return libs
 
 
-def batch_sweep(flush) -> None:
+def take_turns(flush, libs: dict):
+    """Time the builds ``libs`` (tag -> library) of the gate kernel at the
+    2^22-head chunk (k = 25) with the filters of a 50 Mbp assembly: the
+    builds take turns in ROUNDS rounds, each round in a rotated order, each
+    held bit-equal to the plain version.  Yields (layout, {tag: [ms]})."""
     dev = flush.device
     k = 25
     n = flag.DEFAULT_CHUNK
@@ -151,34 +165,67 @@ def batch_sweep(flush) -> None:
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
     buf[:L] = torch.from_numpy(draft[:L].copy())
     seq = buf.to(dev)
-    libs = batch_builds()
+    tags = tuple(libs)
     shipped = gate_kernel.load_library()
     try:
         for name, hf in simulate.chunk_filters(truth, k, GENOME).items():
             df = bloom.DeviceFilter.from_host(hf, dev)
             p = 3 if name == "counting" else 1
             want = gate_kernel.gate_words_plain(seq, n, df, False, p)
-            times: dict = {b: [] for b in BATCHES}
+            times: dict = {b: [] for b in tags}
             for r in range(ROUNDS):
-                for b in BATCHES[r % len(BATCHES):] + BATCHES[: r % len(BATCHES)]:
+                for b in tags[r % len(tags):] + tags[: r % len(tags)]:
                     gate_kernel._lib = libs[b]  # gate_words launches this build
                     if not torch.equal(gate_kernel.gate_words(seq, n, df, False, p), want):
-                        raise AssertionError(f"{name}: the kBatch={b} build differs from plain")
+                        raise AssertionError(f"{name}: the build {b!r} differs from plain")
                     times[b].append(time_ms(lambda: gate_kernel.gate_words(seq, n, df, False, p),
                                             flush, 20))
-            ship = np.array(times[gate_kernel.BATCH])
-            for b in BATCHES:
-                t = np.array(times[b])
-                print(json.dumps({"sweep": "batch", "layout": name, "batch": b,
-                                  "ms": float(np.median(t)), "rounds": ROUNDS,
-                                  "beat_shipped": int((t < ship).sum())}), flush=True)
+            yield name, times
             del df
             torch.cuda.empty_cache()
     finally:
         gate_kernel._lib = shipped
 
 
-def main() -> int:
+def batch_sweep(flush) -> None:
+    for name, times in take_turns(flush, batch_builds()):
+        ship = np.array(times[gate_kernel.BATCH])
+        for b in BATCHES:
+            t = np.array(times[b])
+            print(json.dumps({"sweep": "batch", "layout": name, "batch": b,
+                              "ms": float(np.median(t)), "rounds": ROUNDS,
+                              "beat_shipped": int((t < ship).sum())}), flush=True)
+
+
+def against(flush, other: str) -> None:
+    """This checkout's gate kernel against the one of the checkout at
+    ``other``, built from its sources with this checkout's flags."""
+    csrc = os.path.join(other, "ntedit_tpu_torch", "csrc")
+    src = os.path.join(csrc, "gate_kernel.cu")
+    deps = tuple(os.path.join(csrc, f) for f in sorted(os.listdir(csrc)) if f.endswith(".cuh"))
+
+    def command(source, out):
+        cmd = gate_kernel._command(source, out)
+        cmd[cmd.index("-I") + 1] = csrc  # the other checkout's headers
+        return cmd
+
+    theirs = gate_kernel.open_library(
+        build.build_library("gate_kernel_other", src, command, deps=deps))
+    libs = {"this": gate_kernel.load_library(), "other": theirs}
+    for name, times in take_turns(flush, libs):
+        a, b = np.array(times["this"]), np.array(times["other"])
+        print(json.dumps({"sweep": "against", "other": other, "layout": name,
+                          "this_ms": float(np.median(a)), "other_ms": float(np.median(b)),
+                          "rounds": ROUNDS, "this_won": int((a < b).sum()),
+                          "other_quartiles_ms": [float(q) for q in np.percentile(b, [25, 75])]}),
+              flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="gate_sweep", description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR", default=None,
+                    help="compare with the gate kernel of the checkout at DIR instead")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gate_sweep: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -186,6 +233,9 @@ def main() -> int:
     print(smi, flush=True)
     gate_kernel.load_library()
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=torch.device("cuda"))
+    if args.against:
+        against(flush, args.against)
+        return 0
     floor_sweep(flush)
     batch_sweep(flush)
     return 0

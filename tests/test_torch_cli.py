@@ -1,6 +1,7 @@
 """The torch port's ``engine`` CLI (on the CPU) reproduces the reference
-goldens of the four polish demo modes (demo/runme.sh steps 1-4: default,
--m 1, counting -p 2 -q 254, -a 1), byte for byte.  The demo filters are
+goldens of the demo (demo/runme.sh steps 1-7: default, -m 1, counting
+-p 2 -q 254, -a 1, SNV against the read filter and against a genome
+filter, and the -l annotation join), byte for byte.  The demo filters are
 built with the JAX package's host bfbuild."""
 
 import gzip
@@ -26,6 +27,8 @@ def demo_dir(tmp_path_factory):
         filt, _, _ = bfbuild.build_read_filter(reads, 25, cutoff=2, solid=False, fpr=0.01,
                                                counts=counts, hist=hist)
         filt.save(str(d / name))
+    # make-genome-bf's defaults (demo step 6)
+    bfbuild.build_genome_bf([str(d / "demo_genome.fa")], 25).save(str(d / "demo_genome_k25.bf"))
     return d
 
 
@@ -82,6 +85,34 @@ def test_mask_golden(demo_dir):
         os.path.join(DEMO, "golden_mask_edited.fa.gz"))
 
 
+@pytest.mark.parametrize("bf,golden", [
+    ("demoReads_k25.bf", "golden_snv_reads_variants.vcf"),
+    ("demo_genome_k25.bf", "golden_snv_genome_variants.vcf"),
+])
+@pytest.mark.parametrize("threads", ["1", "4"])
+def test_snv_goldens(demo_dir, bf, golden, threads):
+    """Demo steps 5 and 6 (-t 1 there); -t 4 takes the segmented repair."""
+    prefix = f"snv{threads}_{bf.split('_')[0]}"
+    run_engine(demo_dir, "-r", bf, "-b", prefix, "-t", threads, "-s", "1")
+    assert novcf(read(str(demo_dir / f"{prefix}_variants.vcf"))) == read(
+        os.path.join(DEMO, golden))
+
+
+def test_annotation_golden(demo_dir):
+    """Demo step 7: the -l join with a ClinVar-style VCF."""
+    run_engine(demo_dir, "-r", "demoReads_k25.bf", "-b", "annot", "-t", "1", "-i", "5",
+               "-d", "5", "-l", os.path.join(DEMO, "demo_annot.vcf"))
+    out = read(str(demo_dir / "annot_variants.vcf"))
+    assert novcf(out) == read(os.path.join(DEMO, "golden_annot_variants.vcf"))
+    assert b"CLNSIG=Pathogenic" in out
+
+
+def test_snv_banner(demo_dir, capsys):
+    run_engine(demo_dir, "-r", "demoReads_k25.bf", "-b", "snvb", "-t", "2", "-s", "1")
+    out = capsys.readouterr().out
+    assert " -s 1\n" in out and " -i 0\n -d 0\n" in out
+
+
 def test_banner_and_default_prefix(demo_dir, capsys):
     """The JAX package's banner and auto-composed output prefix."""
     run_engine(demo_dir, "-r", "demoReads_k25.bf", "-t", "2")
@@ -94,7 +125,6 @@ def test_banner_and_default_prefix(demo_dir, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["engine", "-r", "x.bf", "-f", "y.fa", "-s", "1"],
     ["engine", "-r", "x.bf", "-f", "y.fa", "-v", "1"],
     ["engine", "-r", "x.bf", "-f", "y.fa", "--spill", "on"],
     ["polish", "--draft", "y.fa", "--reads", "r", "-k", "25"],

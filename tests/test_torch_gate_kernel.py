@@ -16,7 +16,7 @@ import torch
 import chip_smoke
 from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine import flag
-from ntedit_tpu_torch.ops import gate_kernel
+from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 from ntedit_tpu_torch.utils import simulate
 
 MASK64 = (1 << 64) - 1
@@ -79,8 +79,11 @@ def test_mod_magic_rejects_out_of_range(m):
 
 
 def source_constant(name: str) -> int:
-    with open(gate_kernel.SOURCE) as f:
-        text = f.read()
+    """A constant of the kernel source or of the header it shares."""
+    text = ""
+    for path in (gate_kernel.SOURCE, gate_kernel.HEADER):
+        with open(path) as f:
+            text += f.read()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
@@ -92,6 +95,12 @@ def test_wrapper_constants_match_the_source():
     assert gate_kernel.MAX_K == gate_kernel.HALO + 1
     assert heads == 32  # one gate word per thread: a warp's lanes own consecutive words
     assert heads % gate_kernel.BATCH == 0
+    with open(snv_kernel.SOURCE) as f:  # the SNV kernels share the tile through the header
+        snv = f.read()
+    assert '#include "nthash.cuh"' in snv and "constexpr int kTile" not in snv
+    for layout, name in (("blocked", "kSnvHeadsBlocked"), ("plain", "kSnvHeadsPlain")):
+        per_batch = int(re.search(rf"constexpr int {name} = (\d+);", snv).group(1))
+        assert heads % per_batch == 0 and snv_kernel.CAND_BATCH[layout] == 3 * per_batch
 
 
 @pytest.mark.parametrize("n", [1, 31, (1 << 15) - 1, (1 << 15) + 1, 1_000_003,

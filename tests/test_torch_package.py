@@ -1,7 +1,7 @@
 """Package rules of the torch port: no JAX and nothing of ntedit_tpu in
-it or in chip_smoke.py; the card by default, raising without one; the
+it or in chip_smoke.py; the card by default, raising without one; every
 kernel wrapper raising, with no launch, when its library cannot be built
-or loaded; and, on a card only, the kernel against its plain version."""
+or loaded; and, on a card only, each kernel against its plain version."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ import torch
 
 from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine.polish import Polisher
-from ntedit_tpu_torch.ops import gate_kernel
+from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "ntedit_tpu"}
@@ -51,6 +51,31 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=str(ROOT), check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_build_digest_covers_every_file_read(tmp_path, monkeypatch):
+    """An edited header builds a new library; unchanged files load the
+    earlier build."""
+    from ntedit_tpu_torch.utils import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    src, hdr = tmp_path / "a.cu", tmp_path / "a.cuh"
+    src.write_text('#include "a.cuh"\n')
+    hdr.write_text("// one\n")
+    calls = []
+
+    def command(source, out):
+        calls.append(source)
+        return ["cp", source, out]
+
+    first = build.build_library("x", str(src), command, deps=(str(hdr),))
+    built = len([c for c in calls if c])
+    assert build.build_library("x", str(src), command, deps=(str(hdr),)) == first
+    assert len([c for c in calls if c]) == built  # no second compile
+    hdr.write_text("// two\n")
+    second = build.build_library("x", str(src), command, deps=(str(hdr),))
+    assert second != first and os.path.exists(second)
+    assert gate_kernel.HEADER.endswith("nthash.cuh") and os.path.exists(gate_kernel.HEADER)
 
 
 def small_filter():
@@ -89,6 +114,89 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
     with pytest.raises((RuntimeError, OSError)):
         gate_kernel.gate_words(seq, 100, df)
     assert gate_kernel.gate_words.launches == before
+
+
+@pytest.mark.parametrize("failure", ["build", "load"])
+@pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows"])
+def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
+    if failure == "build":
+        stub = tmp_path / "stub.cu"
+        stub.write_text("this does not compile\n")
+        monkeypatch.setattr(snv_kernel, "SOURCE", str(stub))
+        monkeypatch.setattr(gate_kernel, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    else:
+        stub = tmp_path / "libstub.so"
+        stub.write_bytes(b"not a shared library")
+        monkeypatch.setattr(snv_kernel, "build", lambda force=False: str(stub))
+    monkeypatch.setattr(snv_kernel, "_lib", None)
+    df = bloom.DeviceFilter.from_host(small_filter(), "cpu")
+    seq = torch.empty(gate_kernel.padded_len(100), dtype=torch.uint8, device="meta")
+    fn = getattr(snv_kernel, wrapper)
+    with pytest.raises((RuntimeError, OSError)):
+        if wrapper == "snv_cand_words":
+            fn(seq, 100, df)
+        else:
+            fn(seq, 100, torch.empty(3, dtype=torch.int64, device="meta"), df, 3)
+    assert fn.launches == 0
+
+
+def card_draft(rng, length=30_000):
+    truth = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=length)]
+    draft = truth.copy()
+    draft[rng.integers(0, len(draft), size=300)] = ord("A")
+    draft[rng.integers(0, len(draft), size=30)] = ord("N")
+    draft[rng.integers(0, len(draft), size=30)] = ord("Y")
+    draft[5000:7000] |= 0x20
+    return truth, draft
+
+
+def snv_filter(layout, truth, k):
+    if layout == "blocked":
+        hf = bloom.BlockedKmerBloomFilter.zeros(1 << 14, 3, k)
+    else:
+        hf = bloom.KmerBloomFilter.zeros(90_001, 4, k)
+    hf.insert_seq(truth)
+    return bloom.DeviceFilter.from_host(hf, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [25, 34])
+@pytest.mark.parametrize("layout", ["blocked", "plain"])
+def test_snv_cand_kernel_matches_plain_on_the_card(layout, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SNV kernels have no CPU mode")
+    truth, draft = card_draft(np.random.default_rng(4))
+    df = snv_filter(layout, truth, k)
+    found = 0
+    for n in (len(draft) - k + 1, gate_kernel.TILE + 1, 33):
+        buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+        buf[: n + k - 1] = torch.from_numpy(draft[: n + k - 1])
+        seq = buf.cuda()
+        got = snv_kernel.snv_cand_words(seq, n, df)
+        assert torch.equal(got, snv_kernel.snv_cand_words_plain(seq, n, df)), n
+        found += int(got.count_nonzero())
+    assert found > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,jump", [(25, 3), (25, 1), (34, 5)])
+@pytest.mark.parametrize("layout", ["blocked", "plain"])
+def test_snv_site_kernel_matches_plain_on_the_card(layout, k, jump):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SNV kernels have no CPU mode")
+    from ntedit_tpu_torch.engine import flag
+
+    truth, draft = card_draft(np.random.default_rng(5))
+    df = snv_filter(layout, truth, k)
+    n = len(draft) - k + 1
+    seq = torch.from_numpy(draft).cuda()
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: len(draft)] = torch.from_numpy(draft)
+    cand = flag.positions_on_device(snv_kernel.snv_cand_words(buf.cuda(), n, df))
+    cand = torch.cat([cand, torch.tensor([0, n - k - 1, n - k, n - 1], device="cuda")]).unique()
+    got = snv_kernel.snv_site_rows(seq, n, cand, df, jump)
+    assert torch.equal(got, snv_kernel.snv_site_rows_plain(seq, n, cand, df, jump))
+    assert int((got[:, 0] & 1).sum()) > 0 and int((got[:, 0] == 0).sum()) > 0
 
 
 @pytest.mark.cuda

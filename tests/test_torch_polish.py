@@ -1,7 +1,9 @@
 """The torch port's Polisher (on the CPU) against the JAX package's
 Polisher with the pipelined engine: equal substitution records and equal
 output bytes, each rendered by its own package's writers, for all three
-filter layouts, -t 1 and -t 4, -m 0 and -m 1, -a 1 and a reject filter."""
+filter layouts, -t 1 and -t 4, -m 0 and -m 1, -a 1 and a reject filter;
+and in SNV mode, for the runs whose candidates the device computes (with
+and without site rows) and for those that go through the gate pass."""
 
 import io
 
@@ -64,7 +66,7 @@ def make_filter(layout, truth):
     return f, f.counters, 3
 
 
-def pair(layout, truth, reject=False, **cfg_kw):
+def pair(layout, truth, reject=False, site_rows=True, **cfg_kw):
     jf, arr, h = make_filter(layout, truth)
     tf, _ = convert.filter_from_numpy(layout, arr, h, K, device="cpu")
     jrep = trep = None
@@ -74,7 +76,8 @@ def pair(layout, truth, reject=False, **cfg_kw):
         trep, _ = convert.filter_from_numpy("plain", jrep.data, 3, K, device="cpu")
     jpol = JPolisher(jf, jrep, JConfig(k=K, hash_num=h, **cfg_kw), chunk=CHUNK,
                      engine="pipelined")
-    tpol = TPolisher(tf, trep, TConfig(k=K, hash_num=h, **cfg_kw), chunk=CHUNK, device="cpu")
+    tpol = TPolisher(tf, trep, TConfig(k=K, hash_num=h, **cfg_kw), chunk=CHUNK, device="cpu",
+                     site_rows=site_rows)
     return jpol, tpol
 
 
@@ -98,6 +101,98 @@ def test_polish_contig_matches_jax(layout, cfg_kw, reject):
     assert got.edited == want.edited
     assert render(twriters, got) == render(jwriters, want)
     assert len(got.subs) > 0
+
+
+RATIO = dict(use_ratio=True, missing_ratio=0.5, edit_ratio=0.5)
+SNV_CASES = [
+    # the device computes the candidates: layout, config, reject filter, site rows
+    ("blocked", dict(threads=1), False, True),
+    ("blocked", dict(threads=1), False, False),
+    ("blocked", dict(threads=4), False, True),
+    ("blocked", dict(threads=4), False, False),
+    ("plain", dict(threads=4), False, True),
+    ("plain", dict(threads=1), False, False),
+    ("blocked", dict(threads=4, **RATIO), False, True),
+    ("plain", dict(threads=4, mode=1, jump=1), False, True),
+    # not eligible: every valid head is hinted through the gate pass
+    ("counting", dict(threads=4, min_threshold=2, max_threshold=254), False, True),
+    ("plain", dict(threads=4), True, True),
+    ("blocked", dict(threads=1, mode=2), False, True),
+    ("blocked", dict(threads=4, mask=True), False, True),
+]
+
+
+@pytest.mark.parametrize("layout,cfg_kw,reject,site_rows", SNV_CASES)
+def test_snv_contig_matches_jax(layout, cfg_kw, reject, site_rows):
+    truth, draft = workload(50_000, seed=len(layout) + 3 * cfg_kw["threads"] + int(site_rows))
+    jpol, tpol = pair(layout, truth, reject, site_rows, snv=True, **cfg_kw)
+    eligible = layout != "counting" and not reject and cfg_kw.get("mode") != 2 \
+        and not cfg_kw.get("mask")
+    assert tpol._snv_fast_eligible() == jpol._snv_fast_eligible() == eligible
+    want = jpol.polish_contig("ctg one", draft)
+    got = tpol.polish_contig("ctg one", draft)
+    assert sub_fields(got) == sub_fields(want)
+    assert got.edited == want.edited
+    assert render_snv(got, want)
+    assert len(got.subs) > 20
+
+
+def render_snv(got, want):
+    out = []
+    for writers, res in ((twriters, got), (jwriters, want)):
+        sinks = io.StringIO(), io.StringIO(), io.StringIO()
+        writers.write_contig(res, *sinks, {}, snv=True)
+        out.append(tuple(s.getvalue() for s in sinks))
+    return out[0] == out[1] and "\n" in out[0][2]
+
+
+def test_snv_rows_reach_the_engine(monkeypatch):
+    """With site rows on, the repair is handed rows parallel to its gates
+    (and consumes them: the output equals the run without)."""
+    from ntedit_tpu_torch.engine import native_repair
+
+    truth, draft = workload(30_000, seed=91)
+    seen = []
+    real = native_repair._run_raw
+
+    def spy(lib, contig, pristine, gates, *args, site_rows=None):
+        seen.append(None if site_rows is None else (len(gates), site_rows.shape,
+                                                    int((site_rows[:, 0] & 1).sum())))
+        return real(lib, contig, pristine, gates, *args, site_rows=site_rows)
+
+    monkeypatch.setattr(native_repair, "_run_raw", spy)
+    results = []
+    for rows in (True, False):
+        seen.clear()
+        _, tpol = pair("blocked", truth, site_rows=rows, snv=True, threads=4)
+        results.append(tpol.polish_contig("c", draft))
+        if rows:
+            assert seen and all(s is not None and s[1] == (s[0], 6) for s in seen)
+            assert sum(s[2] for s in seen) > 0
+        else:
+            assert seen and all(s is None for s in seen)
+    assert sub_fields(results[0]) == sub_fields(results[1])
+    assert results[0].edited == results[1].edited
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_snv_stream_matches_jax(threads):
+    """polish() in SNV mode: an all-N contig, one shorter than k (longer
+    than -z), one shorter than -z (dropped), results in input order."""
+    truth, draft = workload(30_000, seed=60)
+    contigs = [("c0 x", draft), ("allN", np.full(400, ord("N"), np.uint8)),
+               ("short", truth[:20].copy()), ("c3", draft[5000:9000].copy())]
+    jpol, tpol = pair("blocked", truth, snv=True, threads=threads, min_contig_len=25)
+    want = list(jpol.polish(iter(contigs)))
+    got = list(tpol.polish(iter(contigs)))
+    assert [r.header for r in got] == [r.header for r in want] == ["c0 x", "allN", "c3"]
+    for g, w in zip(got, want):
+        assert sub_fields(g) == sub_fields(w)
+        assert render_snv(g, w) or not g.subs
+    assert not got[1].subs and got[1].edited == bytes(contigs[1][1])
+    jpol, tpol = pair("blocked", truth, snv=True, threads=threads, min_contig_len=10)
+    (w,), (g,) = list(jpol.polish(iter(contigs[2:3]))), list(tpol.polish(iter(contigs[2:3])))
+    assert g.edited == w.edited == bytes(contigs[2][1]) and not g.subs and not w.subs
 
 
 def test_polish_stream_matches_jax():
@@ -146,17 +241,27 @@ def test_replay_when_the_stream_engine_fails(monkeypatch):
 
 
 def test_not_ported_options_raise(monkeypatch):
-    """-s 1 and -v raise, and so does a failed native repair, where the
-    JAX package would fall back to its wavefront engine."""
+    """-v raises, and so does a failed native repair, in polish and in
+    SNV mode, where the JAX package would fall back to its wavefront
+    engine; the repairs that cut at quiet gaps refuse raw SNV gates."""
     from ntedit_tpu_torch.engine import native_repair
 
     f = jbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, K)
     tf, _ = convert.filter_from_numpy("blocked", f.words, 3, K, device="cpu")
-    for kw in (dict(snv=True), dict(verbose=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TPolisher(tf, None, TConfig(k=K, hash_num=3, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TPolisher(tf, None, TConfig(k=K, hash_num=3, verbose=True), device="cpu")
+    snv_cfg = TConfig(k=K, hash_num=3, snv=True)
+    seq = simulate.random_genome(2000, seed=5)
+    with pytest.raises(ValueError, match="quiet gaps"):
+        native_repair.polish_contig_segmented(f, None, snv_cfg, "c", seq, np.arange(10))
+    with pytest.raises(ValueError, match="quiet gaps"):
+        native_repair.polish_contig_pipelined(f, None, snv_cfg, "c", seq, iter(()))
     monkeypatch.setattr(native_repair, "polish_contig_pipelined", lambda *a, **kw: None)
     monkeypatch.setattr(native_repair, "polish_contig_native", lambda *a, **kw: None)
     pol = TPolisher(tf, None, TConfig(k=K, hash_num=3), device="cpu")
     with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
-        pol.polish_contig("c", simulate.random_genome(2000, seed=5))
+        pol.polish_contig("c", seq)
+    monkeypatch.setattr(native_repair, "polish_contig_segmented", lambda *a, **kw: None)
+    pol = TPolisher(tf, None, snv_cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
+        pol.polish_contig("c", seq)

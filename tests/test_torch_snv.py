@@ -1,0 +1,189 @@
+"""The torch port's SNV passes (plain versions, on the CPU) against the JAX
+package's: equal candidate heads (snv_candidate_positions) and equal
+candidates and [G, 6] site rows (snv_site_data), exactly (integers,
+tolerance 0), for blocked and plain filters, k = 25 and k > 33, jump 1
+and 3, a contig of more than two 2^15-head chunks with N runs, IUPAC
+bytes, a lowercase stretch and variants at both contig ends.
+
+One difference is deliberate and asserted: where the byte after a
+candidate's 2k - 1 checked bytes is not ACGT and the last stride window
+reads it (jump divides k - 1), the JAX package hands out a row computed
+from that byte coded as 'A'; the port's row is invalid (all zero)."""
+
+import numpy as np
+import pytest
+import torch
+
+from ntedit_tpu.core import bloom as jbloom
+from ntedit_tpu.engine import flag as jflag
+from ntedit_tpu.utils import simulate
+from ntedit_tpu_torch import convert
+from ntedit_tpu_torch.core import bloom as tbloom
+from ntedit_tpu_torch.engine import flag as tflag
+from ntedit_tpu_torch.ops import snv_kernel
+
+CHUNK = 1 << 15
+LENGTH = 70_000  # more than two chunks of heads
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def other_base(b, step=1):
+    return BASES[(int(np.where(BASES == (b & 0xDF))[0][0]) + step) % 4]
+
+
+def edge_heads(k, phase, length=LENGTH):
+    """Heads whose tail base is a planted variant: the first head, the last
+    head with a valid row (n-k-1) and the last head of the contig, the
+    heads on one side of each chunk edge (phase 0); or the first head whose
+    row is invalid (n-k) and the heads on the other side (phase 1).  The
+    two sets cannot share a draft: neighbours lie in each other's windows."""
+    n = length - k + 1
+    if phase == 0:
+        return [0, CHUNK - 1, 2 * CHUNK, n - k - 1, n - 1]
+    return [1, CHUNK, 2 * CHUNK - 1, n - k]
+
+
+def workload(k, seed, phase, length=LENGTH):
+    """(variant genome the filter holds, the reference to call against):
+    substitutions about 1 per 500 bases, the tails of ``edge_heads`` among
+    them, N runs, IUPAC bytes and a lowercase stretch."""
+    variant = simulate.random_genome(length, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    draft = variant.copy()
+    planted = np.asarray(edge_heads(k, phase, length)) + k - 1
+    tails = rng.integers(k, length - k, size=length // 500)
+    tails = tails[np.abs(tails[:, None] - planted).min(axis=1) > 2 * k]
+    for p in np.concatenate([tails, planted]):
+        draft[p] = other_base(variant[p], int(rng.integers(1, 4)))
+    noise = rng.integers(3 * k, length - 3 * k, size=14)
+    noise = noise[np.abs(noise[:, None] - planted).min(axis=1) > 2 * k]
+    draft[noise[:-4]] = np.frombuffer(b"RYSWKMBDHV", np.uint8)[: len(noise) - 4]
+    for p in noise[-4:]:
+        draft[p : p + int(rng.integers(1, 9))] = ord("N")
+    draft[length // 2 : length // 2 + 400] |= 0x20
+    return variant, draft
+
+
+def filters(layout, k, variant):
+    if layout == "blocked":
+        f = jbloom.BlockedKmerBloomFilter.zeros(1 << 18, 3, k)
+        f.insert_seq(variant)
+        arr = f.words
+    else:
+        f = jbloom.KmerBloomFilter.zeros(150_001, 3, k)  # not a power of two
+        f.insert_seq(variant)
+        arr = f.data
+    _, tdf = convert.filter_from_numpy(layout, arr, 3, k, device="cpu")
+    return jbloom.DeviceFilter.from_host(f), tdf
+
+
+@pytest.mark.parametrize("layout,k,phase", [("blocked", 25, 0), ("plain", 25, 1),
+                                            ("blocked", 40, 1), ("plain", 35, 0)])
+def test_candidates_match_jax(layout, k, phase):
+    variant, draft = workload(k, 10 + k, phase)
+    jdf, tdf = filters(layout, k, variant)
+    want = jflag.snv_candidate_positions(draft, jdf, chunk=CHUNK)
+    got = tflag.snv_candidate_positions(draft, tdf, chunk=CHUNK)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    n = len(draft) - k + 1
+    assert set(edge_heads(k, phase)).issubset(set(got.tolist()))
+    assert len(got) < n // 20  # sparse: a hint, not every head
+
+
+@pytest.mark.parametrize("layout,k,jump,phase", [("blocked", 25, 1, 1), ("blocked", 25, 3, 0),
+                                                 ("plain", 25, 3, 1), ("blocked", 40, 3, 0),
+                                                 ("plain", 35, 7, 0)])
+def test_site_data_matches_jax(layout, k, jump, phase):
+    variant, draft = workload(k, 20 + k + jump, phase)
+    jdf, tdf = filters(layout, k, variant)
+    want_cand, want_rows = jflag.snv_site_data(draft, jdf, jump, chunk=CHUNK)
+    got_cand, got_rows = tflag.snv_site_data(draft, tdf, jump, chunk=CHUNK)
+    np.testing.assert_array_equal(got_cand, want_cand)
+    np.testing.assert_array_equal(got_cand, tflag.snv_candidate_positions(draft, tdf, chunk=CHUNK))
+    assert got_rows.dtype == np.uint8 and got_rows.shape == (len(got_cand), 6)
+    # the byte past the 2k - 1 that the JAX package checks, where it exists
+    past = np.minimum(got_cand + 2 * k - 1, len(draft) - 1)
+    stricter = (got_cand <= len(draft) - 2 * k) & ~np.isin(draft[past] & 0xDF, BASES)
+    assert not got_rows[stricter].any()
+    np.testing.assert_array_equal(got_rows[~stricter], want_rows[~stricter])
+    n = len(draft) - k + 1
+    valid = got_rows[:, 0] & 1 == 1
+    assert valid.sum() > len(got_cand) // 2
+    edges = np.asarray(edge_heads(k, phase))
+    assert np.isin(edges, got_cand).all()
+    np.testing.assert_array_equal(valid[np.isin(got_cand, edges)], edges <= n - k - 1)
+    assert not valid[got_cand >= n - k].any()  # the scan would leave the contig
+    assert (got_rows[~valid] == 0).all()
+    # a true variant: its base in the filter's genome is verified by every stride
+    strides = len(range(0, k, jump))
+    assert (got_rows[valid, 2:].max(axis=1) == strides).sum() >= 50
+
+
+def test_rows_at_the_stricter_validity():
+    """A candidate whose byte h + 2k - 1 is N: every byte the JAX package
+    checks is ACGT, but the last stride window (kk = k - 1, jump 3 divides
+    24) reads the N.  The port's row is zero; one byte earlier it is valid."""
+    k, jump = 25, 3
+    variant = simulate.random_genome(3000, seed=5)
+    f = tbloom.BlockedKmerBloomFilter.zeros(1 << 14, 3, k)
+    f.insert_seq(variant)
+    df = tbloom.DeviceFilter.from_host(f, "cpu")
+    draft = variant.copy()
+    h = 1000
+    draft[h + k - 1] = other_base(variant[h + k - 1])
+    draft[h + 2 * k - 1] = ord("N")
+    n = len(draft) - k + 1
+    seq = torch.from_numpy(draft)
+    cand = torch.tensor([h - 1, h], dtype=torch.int64)
+    rows = snv_kernel.snv_site_rows(seq, n, cand, df, jump).numpy()
+    assert rows[0, 0] & 1 == 1 and not rows[1].any()
+    assert h in tflag.snv_candidate_positions(draft, df, chunk=CHUNK)
+
+
+def test_short_and_empty_contigs():
+    k = 25
+    variant = simulate.random_genome(500, seed=6)
+    f = tbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, k)
+    f.insert_seq(variant)
+    df = tbloom.DeviceFilter.from_host(f, "cpu")
+    for L in (0, k - 1):
+        assert tflag.snv_candidate_positions(variant[:L], df).shape == (0,)
+        cand, rows = tflag.snv_site_data(variant[:L], df, 3)
+        assert cand.shape == (0,) and rows.shape == (0, 6)
+    one = variant[:k].copy()  # one head; its scan cannot fit
+    one[k - 1] = other_base(one[k - 1])
+    cand, rows = tflag.snv_site_data(one, df, 3)
+    np.testing.assert_array_equal(cand, [0])
+    assert not rows.any()
+    cand, rows = tflag.snv_site_data(np.full(300, ord("N"), np.uint8), df, 3)
+    assert cand.shape == (0,) and rows.shape == (0, 6)
+
+
+def test_wrappers_check_their_arguments():
+    k = 25
+    seq = torch.from_numpy(simulate.random_genome(400, seed=7))
+    cbf = tbloom.KmerCountingBloomFilter8.zeros(4099, 3, k)
+    cdf = tbloom.DeviceFilter.from_host(cbf, "cpu")
+    with pytest.raises(ValueError, match="counting"):
+        snv_kernel.snv_cand_words(seq, 100, cdf)
+    with pytest.raises(ValueError, match="counting"):
+        snv_kernel.snv_site_rows(seq, 100, torch.zeros(1, dtype=torch.int64), cdf, 3)
+    f = tbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, k)
+    df = tbloom.DeviceFilter.from_host(f, "cpu")
+    with pytest.raises(ValueError, match="int64"):
+        snv_kernel.snv_site_rows(seq, 100, torch.zeros(1, dtype=torch.int32), df, 3)
+    with pytest.raises(ValueError, match="jump"):
+        snv_kernel.snv_site_rows(seq, 100, torch.zeros(1, dtype=torch.int64), df, 0)
+    assert snv_kernel.snv_cand_words(seq, 0, df).shape == (0,)
+    assert snv_kernel.snv_site_rows(seq, 100, torch.zeros(0, dtype=torch.int64), df, 3).shape == (0, 6)
+
+
+def test_positions_on_device_matches_host_unpack():
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 1 << 32, size=500, dtype=np.uint64).astype(np.uint32)
+    words[rng.integers(0, 500, size=350)] = 0
+    words[7] = 0x80000001
+    want = tflag.packed_to_positions(words, 32 * len(words))
+    got = tflag.positions_on_device(torch.from_numpy(words.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
