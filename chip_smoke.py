@@ -5,9 +5,9 @@
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
-1. build    - builds the CUDA kernels (nvcc: the gate kernel and the SNV
-              kernels) and the host repair library (g++) from the sources in
-              this checkout, side by side.
+1. build    - builds the CUDA kernels (nvcc: the gate kernel, the SNV
+              kernels and the filter-build kernels) and the host repair
+              library (g++) from the sources in this checkout, side by side.
    Then the kernels' registers, shared memory and spills (nvcc -Xptxas -v)
    and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 2. kernel   - the gate kernel against its plain torch version on the card,
@@ -19,7 +19,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
               same grid, blocked and plain filters: the SNV candidate kernel
               against its plain version, and the SNV site kernel (jump 1, 3
               and k) on those candidates plus heads at both contig ends, on
-              both sides of a tile edge and before N and IUPAC bytes.
+              both sides of a tile edge and before N and IUPAC bytes.  On
+              the same k and lengths, with 0x00 separators added: the three
+              filter-build kernels (hashes; counts into tables of 4m + 1 to
+              4m + 3 bytes, hash_num 1 to 4; blocked and plain insertion at
+              cutoff 1 and 2) against their plain versions.
 3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process) on a
               seeded 50 Mbp draft with a 256 MiB blocked filter, then with a
               btllib-sized plain filter; the three output files must equal,
@@ -39,13 +43,30 @@ Phases, each printing one JSON line; any failure exits nonzero:
               whole contig's candidates (the 30 Mbp contig, blocked; the 5
               Mbp contig, plain): against its plain version, its bytes
               bound, the probe floor and a torch.take yardstick.
-6. numbers  - the gate pass alone at the main path's chunk shape (CUDA
+6. filter_build - the filter build on the card from 30x of 150 bp reads
+              of a seeded 4.7 Mbp genome (940,000 reads, 1% substitutions,
+              a few N bytes, two gzip FASTQ files under one prefix):
+              ``polish --reads R -k 25 -t 8`` (histogram, count and insert
+              kernels into a blocked filter, then the engine), its .hist
+              held to the histogram of the plain hashes, its filter to a
+              whole build by the plain versions on the card, its outputs to
+              the host-only full scan, and its stages one at a time;
+              ``polish --reads R --cbf -p 2 -q 254`` (a counting filter of
+              about 0.49 G slots) held the same way; ``make-genome-bf`` on
+              the 50 Mbp draft of phase 3 (a btllib-sized plain filter) held
+              to the plain build; and ``snv --reference REF --genome SAMPLE``
+              on the 5 Mbp contig of phase 5, its outputs held to the
+              host-only full SNV scan on the filter it built.
+7. numbers  - the gate pass alone at the main path's chunk shape (CUDA
               events, L2 flushed between launches), its plain version, a
               torch.take gather of as many random words as a yardstick, the
               least time the card could take for the same bytes, and the
               random-probe floor: a probe-only kernel making as many random
               probes of the same table with the same loads in flight.  The
-              same for the SNV candidate kernel (blocked and plain).
+              same for the SNV candidate kernel (blocked and plain).  The
+              three filter-build kernels on one 2^24-byte batch of phase 6's
+              reads (its tables): ms, plain ms, bytes bound and an index_add_
+              of as many ones at the same slots as a yardstick.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -173,7 +194,7 @@ def phase_build() -> dict:
     import torch
 
     from ntedit_tpu_torch.engine import native_repair
-    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
@@ -183,9 +204,10 @@ def phase_build() -> dict:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as ex:  # two nvcc and g++ side by side
+    with ThreadPoolExecutor(max_workers=4) as ex:  # three nvcc and g++ side by side
         jobs = {"gate_kernel_s": ex.submit(timed, gate_kernel.load_library),
                 "snv_kernel_s": ex.submit(timed, snv_kernel.load_library),
+                "build_kernel_s": ex.submit(timed, build_kernel.load_library),
                 "repair_s": ex.submit(timed, native_repair.get_lib)}
         times = {name: job.result() for name, job in jobs.items()}
     return {"phase": "build", **times, "device": torch.cuda.get_device_name(0)}
@@ -195,7 +217,10 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "gate_words_kernelILi2E": "counting", "probe_floor_kernelIjE": "floor_words",
           "probe_floor_kernelIhE": "floor_counters",
           "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
-          "snv_site_rows_kernelILi0E": "site_plain", "snv_site_rows_kernelILi1E": "site_blocked"}
+          "snv_site_rows_kernelILi0E": "site_plain", "snv_site_rows_kernelILi1E": "site_blocked",
+          "kmer_hashes_kernel": "kmer_hashes", "kmer_count_kernel": "kmer_count",
+          "kmer_insert_kernelILi0E": "kmer_insert_plain",
+          "kmer_insert_kernelILi1E": "kmer_insert_blocked"}
 
 
 def ptxas_resources(log: str) -> dict:
@@ -228,10 +253,13 @@ def ptxas_resources(log: str) -> dict:
 def phase_resources() -> dict:
     import torch
 
-    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
-    res = {**ptxas_resources(gate_kernel.build_log()), **ptxas_resources(snv_kernel.build_log())}
-    for form, blocks in {**gate_kernel.occupancy(), **snv_kernel.occupancy()}.items():
+    res = {}
+    for mod in (gate_kernel, snv_kernel, build_kernel):
+        res.update(ptxas_resources(mod.build_log()))
+    for form, blocks in {**gate_kernel.occupancy(), **snv_kernel.occupancy(),
+                         **build_kernel.occupancy()}.items():
         res.setdefault(form, {})["blocks_per_sm"] = blocks
     if any(r.get("blocks_per_sm", 0) <= 0 for r in res.values()):
         raise RuntimeError(f"a kernel form cannot be resident: {res}")
@@ -326,6 +354,38 @@ def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
     return words, len(jumps), rows
 
 
+def check_build_kernels(seq_dev, n: int, k: int) -> int:
+    """The three filter-build kernels vs their plain versions on one input:
+    the hashes; counts into a table of 4m + 1 + k % 3 bytes at hash_num
+    1 + k % 4; blocked and plain (not 2^n bits) insertion at cutoff 1 and 2
+    over those counts.  Returns the number of differing elements."""
+    import torch
+
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    dev = seq_dev.device
+    got, want = bk.kmer_hashes(seq_dev, n, k), bk.kmer_hashes_plain(seq_dev, n, k)
+    diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+    hash_num = 1 + k % 4
+    slots = 4 * 20_011 + 1 + k % 3
+    counters = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
+    plain_counters = counters.clone()
+    bk.kmer_count(seq_dev, n, k, hash_num, counters, slots)
+    bk.kmer_count_plain(seq_dev, n, k, hash_num, plain_counters, slots)
+    diff += int((counters != plain_counters).sum())
+    for layout, modulus in (("blocked", 1 << 12), ("plain", 8 * 16_411)):
+        nw = modulus if layout == "blocked" else -(-modulus // 32)
+        for cutoff in (1, 2):
+            words = torch.zeros(nw, dtype=torch.int32, device=dev)
+            plain_words = words.clone()
+            bk.kmer_insert(seq_dev, n, k, hash_num, words, layout, modulus, plain_counters,
+                           slots, cutoff)
+            bk.kmer_insert_plain(seq_dev, n, k, hash_num, plain_words, layout, modulus,
+                                 plain_counters, slots, cutoff)
+            diff += int((words != plain_words).sum())
+    return diff
+
+
 def phase_kernel() -> dict:
     import torch
 
@@ -341,8 +401,11 @@ def phase_kernel() -> dict:
     # the last head's tail bears an alternate: a stretch of the truth, its last base changed
     draft[-60:] = truth[1000:1060]
     draft[-1] = b"ACGT"[(b"ACGT".index(int(truth[1059])) + 1) % 4]
+    # the filter build reads separator-joined records: add 0x00 bytes
+    build_draft = draft.copy()
+    build_draft[rng.integers(0, len(draft), size=40)] = 0
     count = {"cases": 0, "differing_words": 0, "cand_cases": 0, "cand_differing_words": 0,
-             "site_cases": 0, "site_differing_rows": 0}
+             "site_cases": 0, "site_differing_rows": 0, "build_cases": 0, "build_differing": 0}
     bad = []
 
     def check_all(k, filters, lengths):
@@ -371,9 +434,21 @@ def phase_kernel() -> dict:
                     bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
                                 "site_rows": rows})
 
+    def check_build(k, lengths):
+        for L in lengths:
+            n = L - k + 1
+            buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+            buf[:L] = torch.from_numpy(build_draft[:L].copy())
+            diff = check_build_kernels(buf.to(dev), n, k)
+            count["build_cases"] += 1
+            count["build_differing"] += diff
+            if diff:
+                bad.append({"k": k, "L": L, "build_differing": diff})
+
     # k = 1; 33 and 34 cross the 33-bit half of srol; the largest k taken
     for k in (1, 17, 25, 33, 34, 40, gate_kernel.MAX_K):
         check_all(k, _filters_for(truth, k, dev), _kernel_lengths(k, len(draft)))
+        check_build(k, _kernel_lengths(k, len(draft)))
     # a plain filter above 2^32 bits, not a power of two: about half of
     # its indices need the modulo's upper 32 bits
     big = bloom.KmerBloomFilter.zeros(1_000_000_004, 3, 25)
@@ -778,6 +853,7 @@ def phase_snv(work: str) -> list:
     # the plain layout on the 5 Mbp contig alone
     small_path = os.path.join(work, "ref5.fa")
     write_fasta(small_path, refs[2:3])
+    write_fasta(os.path.join(work, "sample5.fa"), variants[2:3])  # phase filter_build's genome
     pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(lengths[2], 3, 0.001), 3, k)
     pl.insert_seq(variants[2])
     pl_path = os.path.join(work, "snv_plain.bf")
@@ -795,7 +871,383 @@ def phase_snv(work: str) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: numbers
+# phase 6: the filter build
+# ---------------------------------------------------------------------------
+
+READ_GENOME = 4_700_000  # bases of the reads' genome (E. coli scale, like CBF_LENGTH)
+READ_LEN = 150
+COVERAGE = 30
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def simulate_reads(genome: np.ndarray, prefix: str, seed: int) -> list:
+    """30x of 150 bp reads of ``genome`` at uniform starts, 1% substitutions
+    (each to another base) and one N per 1,000 reads, written as two gzip
+    FASTQ files under ``prefix``; returns their paths."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    n_reads = len(genome) * COVERAGE // READ_LEN
+    starts = rng.integers(0, len(genome) - READ_LEN + 1, size=n_reads)
+    code = np.zeros(256, dtype=np.int64)
+    code[BASES] = np.arange(4)
+    qual = b"I" * READ_LEN
+    paths = []
+    for part, (lo, hi) in enumerate(((0, n_reads // 2), (n_reads // 2, n_reads))):
+        path = f"{prefix}_{part + 1}.fq.gz"
+        with gzip.open(path, "wb", compresslevel=1) as f:
+            for a in range(lo, hi, 100_000):
+                b = min(hi, a + 100_000)
+                r = genome[starts[a:b, None] + np.arange(READ_LEN)]
+                sub = rng.random(r.shape) < 0.01
+                r[sub] = BASES[(code[r[sub]] + rng.integers(1, 4, size=int(sub.sum()))) % 4]
+                r.reshape(-1)[rng.integers(0, r.size, size=(b - a) // 1000)] = ord("N")
+                f.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (a + i, row.tobytes(), qual)
+                                 for i, row in enumerate(r)))
+        paths.append(path)
+    return paths
+
+
+def kernel_launches() -> dict:
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+
+    return {"kmer_hashes": build_kernel.kmer_hashes.launches,
+            "kmer_count": build_kernel.kmer_count.launches,
+            "kmer_insert": build_kernel.kmer_insert.launches,
+            "gate_words": gate_kernel.gate_words.launches,
+            "snv_cand_words": snv_kernel.snv_cand_words.launches,
+            "snv_site_rows": snv_kernel.snv_site_rows.launches}
+
+
+def reset_launches() -> None:
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+
+    for fn in (build_kernel.kmer_hashes, build_kernel.kmer_count, build_kernel.kmer_insert,
+               gate_kernel.gate_words, snv_kernel.snv_cand_words, snv_kernel.snv_site_rows):
+        fn.launches = 0
+
+
+def run_cli(argv: list, cwd: str) -> tuple:
+    """``python -m ntedit_tpu_torch`` in process from ``cwd``, on the card:
+    (wall seconds, the kernels' launches, peak device memory).  The launch
+    counts are set to 0 just before and read just after."""
+    import torch
+
+    from ntedit_tpu_torch import cli
+
+    here = os.getcwd()
+    os.chdir(cwd)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    finally:
+        os.chdir(here)
+    return time.perf_counter() - t0, kernel_launches(), torch.cuda.max_memory_allocated()
+
+
+def plain_build(pieces, k: int, hash_num: int, nbits: int, slots: int, layout: str,
+                cutoff: int) -> tuple:
+    """A whole filter build by the plain versions on the card, over the
+    same pieces: (counters, words) as numpy (None where the build has no
+    such table)."""
+    import torch
+
+    from ntedit_tpu_torch.core import bfbuild
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    dev = torch.device("cuda")
+    counters = torch.zeros(slots, dtype=torch.uint8, device=dev) if slots else None
+    if slots:
+        for seq, n in bfbuild.upload_batches(pieces, k, dev):
+            bk.kmer_count_plain(seq, n, k, hash_num, counters, slots)
+    words = None
+    if layout != "counting":
+        modulus = nbits // 32 if layout == "blocked" else nbits
+        words = torch.zeros(-(-nbits // 32), dtype=torch.int32, device=dev)
+        for seq, n in bfbuild.upload_batches(pieces, k, dev):
+            bk.kmer_insert_plain(seq, n, k, hash_num, words, layout, modulus, counters, slots,
+                                 cutoff)
+        words = words.cpu().numpy().view(np.uint32)
+    return (None if counters is None else counters.cpu().numpy()), words
+
+
+def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int) -> dict:
+    """The polish --reads path's stages one at a time, none overlapped, on
+    the pieces already read: the histogram (hashes kernel and compaction,
+    then sampling and unique-count), the count pass, the insert pass,
+    download and save, the engine."""
+    import torch
+
+    from ntedit_tpu_torch import cli
+    from ntedit_tpu_torch.core import bfbuild
+    from ntedit_tpu_torch.ops import build_kernel
+
+    dev = torch.device("cuda")
+    out = {"read_s": read_s}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return got
+
+    hashes = timed("histogram_kernel_s", lambda: [
+        build_kernel.valid_hashes(seq, n, k) for seq, n in bfbuild.upload_batches(pieces, k, dev)])
+    hist = timed("histogram_unique_s", lambda: bfbuild.histogram_of(hashes, k))
+    del hashes
+    nbits, slots, _ = bfbuild.filter_sizes(hist, 2)
+    builder = bfbuild.FilterBuilder(k, 3, nbits, slots, "blocked", dev)
+    timed("count_pass_s", lambda: [builder.count_batch(seq, n)
+                                   for seq, n in bfbuild.upload_batches(pieces, k, dev)])
+    timed("insert_pass_s", lambda: [builder.insert_batch(seq, n, 2)
+                                    for seq, n in bfbuild.upload_batches(pieces, k, dev)])
+    bf_path = os.path.join(work, "split.bf")
+    timed("download_and_save_s", lambda: builder.finish().save(bf_path))
+    timed("engine_s", lambda: cli._run_engine(bf_path, draft_path, os.path.join(work, "split"),
+                                              threads=8, device="cuda"))
+    return out
+
+
+def build_kernel_numbers(piece: np.ndarray, counters, slots: int, nbits: int, flush) -> dict:
+    """The three filter-build kernels on one batch of the reads, at the
+    blocked build's tables (``counters``: the whole build's counts): ms
+    (CUDA events, L2 flushed, tables reset before each launch), the plain
+    version's ms, the bytes bound (the ASCII once, the hashes written once,
+    one 32-byte sector read and written per distinct counter or word
+    sector touched) and an index_add_ of as many ones at the same slots
+    into an int32 table of the same length (a yardstick, not the same
+    function)."""
+    import torch
+
+    from ntedit_tpu_torch.core import bfbuild
+    from ntedit_tpu_torch.core import nthash as nt
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    dev = torch.device("cuda")
+    k, hash_num = 25, 3
+    seq, n = next(bfbuild.upload_batches([piece], k, dev))
+    L = len(piece)
+    nw = nbits // 32
+    out = {}
+
+    # hashes
+    got = bk.kmer_hashes(seq, n, k)
+    want = bk.kmer_hashes_plain(seq, n, k)
+    err = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+    can = want[0][bk.unpack_bits(want[1], n)]
+    out["kmer_hashes"] = {
+        "windows": n, "valid": int(can.numel()), "bytes": L + 8 * n + 4 * -(-n // 32),
+        "ms": time_cuda(lambda: bk.kmer_hashes(seq, n, k), 20, flush),
+        "plain_ms": time_cuda(lambda: bk.kmer_hashes_plain(seq, n, k), 3, flush),
+        "index_add_ms": None, "differing": err}
+
+    # count, into a zeroed table of the build's size
+    slot_idx = torch.cat([nt.umod(h, slots) for h in nt.extend(can, k, hash_num)])
+    c_sectors = int(torch.unique(slot_idx >> 5).numel())
+    table = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
+    plain_table = table.clone()
+    bk.kmer_count(seq, n, k, hash_num, table, slots)
+    bk.kmer_count_plain(seq, n, k, hash_num, plain_table, slots)
+    err = int((table != plain_table).sum())
+    yard = torch.zeros(slots, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(slot_idx, dtype=torch.int32)
+    out["kmer_count"] = {
+        "slots": slots, "increments": int(slot_idx.numel()), "sectors": c_sectors,
+        "bytes": L + 2 * 32 * c_sectors,
+        "ms": time_cuda(lambda: bk.kmer_count(seq, n, k, hash_num, table, slots), 20, flush,
+                        reset=table.zero_),
+        "plain_ms": time_cuda(lambda: bk.kmer_count_plain(seq, n, k, hash_num, table, slots), 3,
+                              flush, reset=table.zero_),
+        "index_add_ms": time_cuda(lambda: yard.index_add_(0, slot_idx, ones), 20, flush),
+        "differing": err}
+    del table, plain_table, yard, ones, slot_idx
+
+    # insert at cutoff 2, reading the whole build's counts
+    full = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
+    full[:slots] = torch.from_numpy(counters).to(dev)
+    ok = bk.min_count(can, k, hash_num, full, slots).long() >= 2
+    widx = can[ok] & (nw - 1)
+    w_sectors = int(torch.unique(widx >> 3).numel())
+    words = torch.zeros(nw, dtype=torch.int32, device=dev)
+    plain_words = words.clone()
+    bk.kmer_insert(seq, n, k, hash_num, words, "blocked", nw, full, slots, 2)
+    bk.kmer_insert_plain(seq, n, k, hash_num, plain_words, "blocked", nw, full, slots, 2)
+    err = int((words != plain_words).sum())
+    yard = torch.zeros(nw, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(widx, dtype=torch.int32)
+    out["kmer_insert"] = {
+        "words": nw, "inserted": int(widx.numel()), "counter_sectors_read": c_sectors,
+        "word_sectors": w_sectors, "bytes": L + 32 * c_sectors + 2 * 32 * w_sectors,
+        "ms": time_cuda(lambda: bk.kmer_insert(seq, n, k, hash_num, words, "blocked", nw, full,
+                                               slots, 2), 20, flush, reset=words.zero_),
+        "plain_ms": time_cuda(lambda: bk.kmer_insert_plain(seq, n, k, hash_num, words, "blocked",
+                                                           nw, full, slots, 2), 3, flush,
+                              reset=words.zero_),
+        "index_add_ms": time_cuda(lambda: yard.index_add_(0, widx, ones), 20, flush),
+        "differing": err}
+    for row in out.values():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if row["differing"]:
+            raise AssertionError(f"a build kernel differs from its plain version: {out}")
+    return out
+
+
+def phase_filter_build(work: str) -> dict:
+    """polish --reads (blocked, cutoff 2) and --cbf, make-genome-bf and
+    snv --genome through the command line on the card, each filter held to
+    the plain versions' build and each output to the host-only full scan."""
+    import torch
+
+    from ntedit_tpu_torch.core import bfbuild, bloom
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.ops import build_kernel as bk
+    from ntedit_tpu_torch.utils import simulate
+
+    k = 25
+    dev = torch.device("cuda")
+    out = {"phase": "filter_build"}
+    t0 = time.perf_counter()
+    truth = simulate.random_genome(READ_GENOME, seed=1100)
+    draft, _ = simulate.inject_errors(truth, seed=1101)
+    draft_path = os.path.join(work, "draft_reads.fa")
+    write_fasta(draft_path, [draft])
+    prefix = os.path.join(work, "reads")
+    read_files = simulate_reads(truth, prefix, seed=1102)
+    out["simulate_s"] = time.perf_counter() - t0
+    out["reads"] = len(truth) * COVERAGE // READ_LEN
+
+    # polish --reads: the main path of the build, blocked, cutoff 2
+    wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
+                                    str(k), "-t", "8", "-b", os.path.join(work, "fb")], work)
+    for name in ("kmer_hashes", "kmer_count", "kmer_insert", "gate_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"polish --reads never launched {name}: {launches}")
+    hist = bfbuild.Histogram.load(f"{prefix}_k{k}.hist", k=k)
+    bf = bloom.load_any(f"{prefix}_k{k}.bf")
+    t0 = time.perf_counter()
+    pieces = list(bfbuild.iter_separated_buffers(read_files, k))
+    read_s = time.perf_counter() - t0
+    # the histogram from the plain hashes on the card, and every read k-mer's count
+    plain_hashes = [bk.valid_hashes_plain(seq, n, k) for seq, n in bfbuild.upload_batches(pieces, k, dev)]
+    plain_hist = bfbuild.histogram_of(plain_hashes, k)
+    same_hist = (plain_hist.f1, plain_hist.f0) == (hist.f1, hist.f0) and np.array_equal(
+        plain_hist.spectrum, hist.spectrum)
+    kmers, mult = torch.unique(torch.cat(plain_hashes), return_counts=True)
+    del plain_hashes
+    df = bloom.DeviceFilter.from_host(bf, dev)
+    solid = kmers[mult >= 2]
+    absent = int((~df.contains([solid])).sum())
+    truth_can = bk.valid_hashes(*_padded(truth, k, dev))
+    truth_absent = int((~df.contains([torch.unique(truth_can)])).sum())
+    del kmers, mult, solid, truth_can, df
+    nbits, slots, cbf_slots = bfbuild.filter_sizes(hist, 2)
+    counters, words = plain_build(pieces, k, 3, nbits, slots, "blocked", 2)
+    same_bf = isinstance(bf, bloom.BlockedKmerBloomFilter) and np.array_equal(bf.words, words)
+    cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
+    ref_prefix = os.path.join(work, "fb_ref")
+    t0 = time.perf_counter()
+    reference_outputs(bf, draft_path, ref_prefix, cfg)
+    ref_s = time.perf_counter() - t0
+    same = _same_outputs(os.path.join(work, f"fb_ntedit_k{k}"), ref_prefix)
+    out["polish_reads"] = {
+        "wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+        "f1": hist.f1, "f0": hist.f0, "cutoff": 2, "filter_bytes": bf.bytes,
+        "count_slots": slots, "hist_equals_plain": same_hist, "filter_equals_plain": same_bf,
+        "solid_read_kmers_absent": absent, "genome_kmers_absent": truth_absent,
+        "reference_full_scan_s": ref_s, "byte_identical": same,
+        "split": read_filter_split(pieces, read_s, draft_path, work, k)}
+    if not (same_hist and same_bf and all(same.values())) or absent:
+        raise AssertionError(f"polish --reads: {out['polish_reads']}")
+    del bf
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
+    out["kernel_numbers"] = build_kernel_numbers(pieces[0], counters, slots, nbits, flush)
+    del counters, words, flush
+    torch.cuda.empty_cache()
+
+    # polish --reads --cbf: the counting filter of every valid k-mer
+    wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
+                                    str(k), "-t", "8", "--cbf", "-p", "2", "-q", "254", "-b",
+                                    os.path.join(work, "fbc")], work)
+    if launches["kmer_count"] <= 0 or launches["gate_words"] <= 0:
+        raise AssertionError(f"polish --cbf never launched its kernels: {launches}")
+    cbf = bloom.load_any(f"{prefix}_k{k}.cbf")
+    plain_counters, _ = plain_build(pieces, k, 3, 0, cbf_slots, "counting", 1)
+    same_cbf = cbf.bytes == cbf_slots and np.array_equal(cbf.counters, plain_counters)
+    del plain_counters
+    cfg = EngineConfig(k=k, hash_num=3, threads=1, min_threshold=2, max_threshold=254).validate()
+    ref_prefix = os.path.join(work, "fbc_ref")
+    reference_outputs(cbf, draft_path, ref_prefix, cfg)
+    same = _same_outputs(os.path.join(work, f"fbc_ntedit_k{k}"), ref_prefix)
+    out["polish_cbf"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+                         "slots": cbf.bytes, "filter_equals_plain": same_cbf,
+                         "byte_identical": same}
+    if not (same_cbf and all(same.values())):
+        raise AssertionError(f"polish --cbf: {out['polish_cbf']}")
+    del cbf, pieces
+    torch.cuda.empty_cache()
+
+    # make-genome-bf on phase 3's 50 Mbp draft: btllib size, plain layout
+    genome_path = os.path.join(work, "draft50.fa")
+    bf_path = os.path.join(work, "genome50.bf")
+    wall, launches, peak = run_cli(["make-genome-bf", "--genome", genome_path, "-k", str(k),
+                                    "--fpr", "0.01", "-o", bf_path], work)
+    if launches["kmer_insert"] <= 0:
+        raise AssertionError(f"make-genome-bf never launched kmer_insert: {launches}")
+    gbf = bloom.load_any(bf_path)
+    _, words = plain_build(list(bfbuild.iter_separated_buffers([genome_path], k)), k, 3,
+                           gbf.bits, 0, "plain", 1)
+    same_gbf = np.array_equal(gbf.data, words.view(np.uint8)[: gbf.bytes])
+    out["make_genome_bf"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+                             "filter_bytes": gbf.bytes, "filter_equals_plain": same_gbf}
+    if not same_gbf:
+        raise AssertionError(f"make-genome-bf: {out['make_genome_bf']}")
+    del gbf, words
+
+    # snv --genome on phase 5's 5 Mbp contig and its sample
+    # the artifacts land in the working directory, named after the genome
+    ref_path, sample_path = os.path.join(work, "ref5.fa"), os.path.join(work, "sample5.fa")
+    wall, launches, peak = run_cli(["snv", "--reference", ref_path, "--genome", sample_path,
+                                    "-k", str(k), "-t", "8"], work)
+    for name in ("kmer_hashes", "kmer_insert", "snv_cand_words", "snv_site_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"snv --genome never launched {name}: {launches}")
+    sbf = bloom.load_any(os.path.join(work, f"sample5_k{k}.bf"))
+    _, words = plain_build(list(bfbuild.iter_separated_buffers([sample_path], k)), k, 3,
+                           sbf.bits, 0, "plain", 1)
+    same_sbf = np.array_equal(sbf.data, words.view(np.uint8)[: sbf.bytes])
+    cfg = EngineConfig(k=k, hash_num=3, snv=True, threads=1).validate()
+    ref_prefix = os.path.join(work, "snvg_ref")
+    reference_outputs(sbf, ref_path, ref_prefix, cfg)
+    same = _same_outputs(os.path.join(work, f"sample5_ntedit_k{k}"), ref_prefix)
+    with open(os.path.join(work, f"sample5_ntedit_k{k}_changes.tsv")) as f:
+        records = sum(1 for _ in f) - 1
+    out["snv_genome"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+                         "filter_bytes": sbf.bytes, "filter_equals_plain": same_sbf,
+                         "records": records, "byte_identical": same}
+    if not (same_sbf and all(same.values())) or records <= 0:
+        raise AssertionError(f"snv --genome: {out['snv_genome']}")
+    return out
+
+
+def _padded(seq: np.ndarray, k: int, dev) -> tuple:
+    """(seq on ``dev`` padded for the kernels, its windows)."""
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    n = len(seq) - k + 1
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: len(seq)] = torch.from_numpy(seq)
+    return buf.to(dev), n, k
+
+
+
+# ---------------------------------------------------------------------------
+# phase 7: numbers
 # ---------------------------------------------------------------------------
 
 def probe_cost(df, can, min_threshold: int = 1) -> tuple:
@@ -877,13 +1329,16 @@ def snv_site_probed(seq_dev, n: int, cand, df, jump: int) -> tuple:
     return int(torch.unique(torch.cat(sectors)).numel()), int(valid.sum()), probes
 
 
-def time_cuda(fn, reps: int, flush) -> float:
-    """Median ms of ``fn`` over ``reps`` launches, L2 flushed before each."""
+def time_cuda(fn, reps: int, flush, reset=None) -> float:
+    """Median ms of ``fn`` over ``reps`` launches, L2 flushed before each
+    (and ``reset()`` called before that, untimed)."""
     import torch
 
     fn()  # warm
     times = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
         flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1084,8 +1539,12 @@ def main() -> int:
         for row in snv_rows:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             emit(row)
+        build = phase_filter_build(work)
+        build_numbers = build.pop("kernel_numbers")
+        emit(build)
     torch.cuda.reset_peak_memory_stats()
     numbers = phase_numbers(power)
+    numbers["build"] = build_numbers
     emit(numbers)
     blk = numbers["layouts"]["blocked"]
     differing = kernel["differing_words"] + sum(
@@ -1137,6 +1596,25 @@ def main() -> int:
             "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
                                                          "plain_ms")}
                         for layout, r in parts.items()},
+        })
+    # the filter-build kernels: launches from polish --reads, times on one
+    # 2^24-byte batch of its reads at its tables
+    for name, line in (("kmer_hashes", 49), ("kmer_count", 293), ("kmer_insert", 319)):
+        one = build_numbers[name]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ntedit_tpu_torch/csrc/build_kernel.cu",
+            "replaces": f"ntedit_tpu/core/bfbuild.py:{line}",
+            "launches": build["polish_reads"]["launches"][name],
+            "matches_plain": one["differing"] + kernel["build_differing"] == 0,
+            "max_abs_err": one["differing"],
+            "ms": one["ms"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "index_add_ms": one["index_add_ms"],
         })
     emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

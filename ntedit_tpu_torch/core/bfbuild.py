@@ -1,0 +1,422 @@
+"""Bloom-filter construction on the card: the ntCard + ntStat +
+make_genome_bf path of the JAX package's ``core/bfbuild.py``.
+
+* ``count_histogram``  — ntCard's role: the k-mer multiplicity histogram
+  (F1 = total k-mers, F0 = distinct, the f_i spectrum), saved and loaded in
+  ntCard's .hist text format.  Exact up to ``sample_budget`` kept hashes;
+  beyond it, ntCard-style hash sampling keeps the k-mers whose mixed hash
+  falls in a 2^-s slice and scales by 2^s.  The final s is the smallest
+  whose kept count fits the budget, which does not depend on record order.
+* ``solid_cutoff``     — ntStat's ``--solid``: the first valley of the
+  spectrum, clamped to [2, 255].
+* ``build_read_filter`` — ntStat ``filter``: a Bloom filter of the read
+  k-mers with multiplicity >= cutoff (count-min counting, then threshold
+  insertion), or with ``counts=True`` the counting filter of all of them.
+* ``build_genome_bf``  — ntedit_make_genome_bf: a plain filter of all
+  genome k-mers, sized from --bf | --num_elements | the total length.
+
+The records are read on the host and joined with a 0x00 separator into
+batches of at most ``batch`` bytes, uploaded as ASCII; consecutive pieces
+of a long buffer overlap by exactly k - 1 bytes, so every window is seen
+once.  Each pass over a batch is one kernel (ops/build_kernel.py): the
+canonical hashes for the histogram, the count-min increments, the
+threshold insertion.  The histogram's unique-count and the sampling are
+torch ops on the device.  ``device="cpu"`` runs the kernels' plain
+versions on the CPU.  Only valid windows (all k bytes ACGTacgt) count.
+
+Filters, histograms and their files equal the JAX package's for the same
+inputs.  One difference is a fault of the reference: its device counting
+reduces the low 32 bits of a hash, so a count table above 2^32 slots
+folds into its first 2^32; here every slot index is the exact
+``h mod slots``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ntedit_tpu_torch.core import bloom
+from ntedit_tpu_torch.core import nthash as nt
+from ntedit_tpu_torch.engine.polish import resolve_device
+from ntedit_tpu_torch.io import fastx
+from ntedit_tpu_torch.ops import build_kernel
+from ntedit_tpu_torch.ops.gate_kernel import padded_len
+
+BATCH = 1 << 24  # bytes of separator-joined records per device batch
+LAYOUTS = ("blocked", "plain", "counting")
+
+
+# ---------------------------------------------------------------------------
+# separator-joined batches
+# ---------------------------------------------------------------------------
+
+def _iter_seqs(paths: Sequence[str]) -> Iterator[np.ndarray]:
+    for p in paths:
+        for rec in fastx.read_fastx(p):
+            yield rec.seq
+
+
+def iter_separated_buffers(paths: Sequence[str], k: int, batch: int = BATCH) -> Iterator[np.ndarray]:
+    """Records joined with a 0x00 byte after each (non-ACGT: no valid window
+    straddles two records), in pieces of ``batch`` bytes (the last one
+    shorter).  Consecutive pieces overlap by exactly k - 1 bytes, so every
+    window lies in exactly one piece (count-min updates must not count a
+    window twice)."""
+    if batch < k:
+        raise ValueError(f"a batch of {batch} bytes holds no window of k={k}")
+    step = batch - (k - 1)
+    sep = np.zeros(1, np.uint8)
+    pend: list = []
+    n = 0
+    for seq in _iter_seqs(paths):
+        pend += (seq, sep)
+        n += len(seq) + 1
+        if n >= batch:
+            buf = np.concatenate(pend)
+            s = 0
+            while len(buf) - s >= batch:
+                yield buf[s : s + batch]
+                s += step
+            pend, n = [buf[s:]], len(buf) - s  # the next piece's k - 1 bytes of overlap and more
+    if n >= k:  # a remainder of k - 1 bytes holds no window of its own
+        yield np.concatenate(pend)
+
+
+def upload_batches(pieces: Iterable[np.ndarray], k: int, device, batch: int = BATCH
+                   ) -> Iterator[tuple]:
+    """(seq, n) per piece of at most ``batch`` bytes: ``seq`` a uint8
+    buffer on ``device`` of ``padded_len(batch)`` bytes (the kernels' tile
+    and halo) holding the piece at its start, ``n`` its windows.  The
+    buffer is reused: it is valid until the next piece, for work queued on
+    the current stream."""
+    buf = torch.zeros(padded_len(batch), dtype=torch.uint8, device=device)
+    for piece in pieces:
+        n = len(piece) - k + 1
+        if n <= 0:
+            continue
+        buf[: len(piece)].copy_(torch.from_numpy(piece))
+        yield buf, n
+
+
+def device_batches(paths: Sequence[str], k: int, device, batch: int = BATCH) -> Iterator[tuple]:
+    """``upload_batches`` of the records of ``paths``."""
+    return upload_batches(iter_separated_buffers(paths, k, batch), k, device, batch)
+
+
+# ---------------------------------------------------------------------------
+# histogram (ntCard role)
+# ---------------------------------------------------------------------------
+
+_MIX1 = nt._signed(0x9E3779B97F4A7C15)
+_MIX2 = nt._signed(0xBF58476D1CE4E5B9)
+
+
+def _sample_key(h: torch.Tensor) -> torch.Tensor:
+    """Avalanche mix (splitmix64's finalizer) for hash-slice sampling: the
+    canonical hash behaves like a minimum of two uniforms, so slicing on
+    its raw top bits would over-sample; a bijective mixer keeps
+    distinctness.  uint64 arithmetic on int64 bits (multiplies wrap, shifts
+    are logical)."""
+    x = h * _MIX1
+    x = x ^ nt.shr(x, 29)
+    x = x * _MIX2
+    return x ^ nt.shr(x, 32)
+
+
+def _in_slice(h: torch.Tensor, s: int) -> torch.Tensor:
+    """bool: the hashes whose mixed key has its top ``s`` bits clear."""
+    return nt.shr(_sample_key(h), 64 - s) == 0
+
+
+@dataclasses.dataclass
+class Histogram:
+    k: int
+    f1: int                 # total k-mers (F1)
+    f0: int                 # distinct k-mers (F0)
+    spectrum: np.ndarray    # spectrum[i] = # distinct k-mers with count i (i>=1)
+
+    def f(self, i: int) -> int:
+        return int(self.spectrum[i]) if 0 < i < len(self.spectrum) else 0
+
+    def solid_cardinality(self, cutoff: int) -> int:
+        """Distinct k-mers with multiplicity >= cutoff."""
+        below = int(self.spectrum[1:cutoff].sum()) if cutoff > 1 else 0
+        return max(1, self.f0 - below)
+
+    def save(self, path: str) -> None:
+        """ntCard .hist text format."""
+        with open(path, "w") as f:
+            f.write(f"F1\t{self.f1}\n")
+            f.write(f"F0\t{self.f0}\n")
+            for i in range(1, len(self.spectrum)):
+                f.write(f"{i}\t{int(self.spectrum[i])}\n")
+
+    @classmethod
+    def load(cls, path: str, k: int = 0) -> "Histogram":
+        f1 = f0 = 0
+        pairs = {}
+        with open(path) as f:
+            for line in f:
+                key, val = line.split()
+                if key == "F1":
+                    f1 = int(val)
+                elif key == "F0":
+                    f0 = int(val)
+                else:
+                    pairs[int(key)] = int(val)
+        top = max(pairs) if pairs else 0
+        spec = np.zeros(top + 1, dtype=np.int64)
+        for i, v in pairs.items():
+            spec[i] = v
+        return cls(k=k, f1=f1, f0=f0, spectrum=spec)
+
+
+def histogram_of(hashes: Iterable[torch.Tensor], k: int, max_count: int = 255,
+                 sample_budget: int = 1 << 26) -> Histogram:
+    """The histogram of the canonical hashes of every valid window, given
+    in batches; the sampling, the unique-count and the spectrum run where
+    the hashes lie."""
+    s = 0
+    total = 0
+    kept: list = []
+    kept_n = 0
+    for h in hashes:
+        total += h.numel()
+        if s:
+            h = h[_in_slice(h, s)]
+        kept.append(h)
+        kept_n += h.numel()
+        while kept_n > sample_budget:
+            s += 1
+            kept = [a[_in_slice(a, s)] for a in kept]
+            kept_n = sum(a.numel() for a in kept)
+    if kept:
+        sampled = torch.cat(kept)
+    else:
+        sampled = torch.zeros(0, dtype=torch.int64)
+    del kept
+    uniq, counts = torch.unique(sampled, return_counts=True)
+    scale = 1 << s
+    spec = torch.bincount(counts.clamp(max=max_count), minlength=max_count + 1)
+    spectrum = spec.cpu().numpy().astype(np.int64) * scale
+    spectrum[0] = 0
+    return Histogram(k=k, f1=total, f0=int(uniq.numel()) * scale, spectrum=spectrum)
+
+
+def count_histogram(paths: Sequence[str], k: int, max_count: int = 255,
+                    sample_budget: int = 1 << 26, device=None, batch: int = BATCH) -> Histogram:
+    """Stream the reads through the hashes kernel and build the k-mer
+    multiplicity histogram on ``device`` (the card by default)."""
+    dev = resolve_device(device)
+    hashes = (build_kernel.valid_hashes(seq, n, k) for seq, n in device_batches(paths, k, dev, batch))
+    return histogram_of(hashes, k, max_count, sample_budget)
+
+
+def solid_cutoff(hist: Histogram) -> int:
+    """First valley of the multiplicity spectrum: errors dominate low counts
+    with a steeply falling f_i; genuine coverage forms a later peak.  The
+    first i where f_i stops falling separates them.  Clamped to [2, 255]."""
+    f = hist.spectrum
+    top = len(f) - 1
+    i = 2
+    while i < top and f[i] > f[i + 1]:
+        i += 1
+    return int(min(max(i, 2), 255))
+
+
+# ---------------------------------------------------------------------------
+# the device builder
+# ---------------------------------------------------------------------------
+
+class FilterBuilder:
+    """Streaming count-min counting and threshold insertion on one device.
+
+    ``layout``:
+    * ``blocked`` — ``nbits`` a power of two: the framework-native
+      BlockedKmerBloomFilter, one word and hash_num 5-bit offsets per k-mer;
+    * ``plain``   — ``nbits`` a multiple of 8, any size: btllib's
+      KmerBloomFilter, bit ``h_j mod nbits``;
+    * ``counting`` — no bit array: ``finish`` returns the counters as
+      btllib's KmerCountingBloomFilter8.
+
+    ``slots`` counters (uint8, any size, exact ``h_j mod slots``) back the
+    count pass; 0 means none (no ``count_batch``, insertion at cutoff 1
+    only).  The tables live on the device, padded to whole 32-bit words for
+    the kernels' atomics, and ``finish`` trims them.  Every pass runs on
+    the current stream, so insertion sees the finished count pass."""
+
+    def __init__(self, k: int, hash_num: int, nbits: int, slots: int,
+                 layout: str = "blocked", device=None):
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
+        if hash_num < 1:
+            raise ValueError(f"hash_num must be at least 1, got {hash_num}")
+        if layout == "blocked":
+            nw = nbits // 32
+            if nbits % 32 or nw < 1 or nw & (nw - 1):
+                raise ValueError(f"the blocked layout needs a power-of-two word count, got {nbits} bits")
+            if nw > bloom.MAX_BLOCKED_WORDS:
+                raise NotImplementedError("single-device blocked filter limited to 2^31 words")
+            if hash_num * 5 + nw.bit_length() - 1 > 64:
+                raise ValueError("hash_num too large for blocked layout")
+        elif layout == "plain":
+            if nbits < 8 or nbits % 8:
+                raise ValueError(f"the plain layout needs a positive whole number of bytes, got {nbits} bits")
+            if nbits > bloom.MAX_PLAIN_BITS:
+                raise NotImplementedError("single-device filter limited to 2^36 bits (8 GiB)")
+        elif slots < 1:
+            raise ValueError("a counting filter needs at least one slot")
+        if slots < 0:
+            raise ValueError(f"slots must be >= 0, got {slots}")
+        self.k = k
+        self.hash_num = hash_num
+        self.layout = layout
+        self.nbits = nbits if layout != "counting" else 0
+        self.slots = slots
+        self.device = resolve_device(device)
+        self.counters = (torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=self.device)
+                         if slots else None)
+        nwords = -(-self.nbits // 32)
+        self.words = (torch.zeros(nwords, dtype=torch.int32, device=self.device)
+                      if layout != "counting" else None)
+        self._finished = False
+
+    @property
+    def modulus(self) -> int:
+        """What a hash is reduced by in the bit array: words (blocked) or bits."""
+        return self.nbits // 32 if self.layout == "blocked" else self.nbits
+
+    def _live(self) -> None:
+        if self._finished:
+            raise RuntimeError("builder already finished")
+
+    def count_batch(self, seq: torch.Tensor, n: int) -> None:
+        """Count-min increments of the valid windows [0, n) of ``seq``."""
+        self._live()
+        if self.counters is None:
+            raise RuntimeError("builder has no counter table (slots=0)")
+        build_kernel.kmer_count(seq, n, self.k, self.hash_num, self.counters, self.slots)
+
+    def insert_batch(self, seq: torch.Tensor, n: int, cutoff: int) -> None:
+        """Insert the valid windows of [0, n) whose count-min read is at
+        least ``cutoff`` (all of them when cutoff <= 1)."""
+        self._live()
+        if self.words is None:
+            raise RuntimeError("a counting builder has no bit array to insert into")
+        if cutoff > 1 and self.counters is None:
+            raise RuntimeError("insertion above cutoff 1 needs the counter table")
+        build_kernel.kmer_insert(seq, n, self.k, self.hash_num, self.words, self.layout,
+                                 self.modulus, self.counters, self.slots, cutoff)
+
+    def finish(self):
+        """Download the filter: BlockedKmerBloomFilter, KmerBloomFilter or
+        KmerCountingBloomFilter8 by layout."""
+        self._live()
+        self._finished = True
+        if self.layout == "counting":
+            counters = self.counters[: self.slots].cpu().numpy()
+            self.counters = None
+            return bloom.KmerCountingBloomFilter8(counters, self.hash_num, self.k)
+        words = self.words.cpu().numpy().view(np.uint32)
+        self.words = self.counters = None  # device tables released
+        if self.layout == "blocked":
+            return bloom.BlockedKmerBloomFilter(words, self.hash_num, self.k)
+        data = words.view(np.uint8)[: self.nbits // 8].copy()
+        return bloom.KmerBloomFilter(data, self.hash_num, self.k)
+
+
+# ---------------------------------------------------------------------------
+# read-derived BF / CBF (ntStat filter role) and the genome BF
+# ---------------------------------------------------------------------------
+
+def filter_sizes(hist: Histogram, cutoff: int, hash_num: int = 3, fpr: float = 0.01,
+                 layout: str = "blocked") -> tuple:
+    """(bits, count slots, counting-filter slots) of a read filter: the JAX
+    package's device branch (``blocked``: power-of-two sizes) or host
+    branch (``plain``: btllib sizes).  A counting filter has as many slots
+    as the bit-array formula gives bits for F0 (one byte per slot)."""
+    n_solid = hist.solid_cardinality(cutoff)
+    cbf_slots = bloom.bf_size_bytes(hist.f0, hash_num, fpr) * 8
+    if layout == "blocked":
+        return (bloom.pow2_size_bytes(n_solid, hash_num, fpr) * 8,
+                1 << max(12, (cbf_slots - 1).bit_length()), cbf_slots)
+    return bloom.bf_size_bytes(n_solid, hash_num, fpr) * 8, cbf_slots, cbf_slots
+
+
+def build_read_filter(
+    paths: Sequence[str],
+    k: int,
+    cutoff: int = 2,
+    solid: bool = False,
+    fpr: float = 0.01,
+    hash_num: int = 3,
+    counts: bool = False,
+    hist: Optional[Histogram] = None,
+    layout: str = "blocked",
+    device=None,
+    batch: int = BATCH,
+):
+    """BF (or CBF when counts=True) of read k-mers with multiplicity
+    >= cutoff.  ``solid`` derives the cutoff from the histogram.  Returns
+    (filter, hist, cutoff).
+
+    ``layout`` mirrors the JAX package's two branches: ``blocked`` is its
+    device build (power-of-two sizes, a count table of
+    ``1 << max(12, bit_length(cbf_slots - 1))`` slots, counted only when
+    cutoff > 1), ``plain`` its host build (btllib sizes, a count table of
+    ``cbf_slots``).  ``counts=True`` counts every valid k-mer into
+    ``cbf_slots`` counters, with no cutoff."""
+    dev = resolve_device(device)
+    if layout not in ("blocked", "plain"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if hist is None:
+        hist = count_histogram(paths, k, device=dev, batch=batch)
+    if solid:
+        cutoff = solid_cutoff(hist)
+    cutoff = max(1, int(cutoff))
+
+    nbits, slots, cbf_slots = filter_sizes(hist, cutoff, hash_num, fpr, layout)
+
+    def batches():
+        return device_batches(paths, k, dev, batch)
+
+    if counts:
+        builder = FilterBuilder(k, hash_num, 0, cbf_slots, "counting", dev)
+        for seq, n in batches():
+            builder.count_batch(seq, n)
+        return builder.finish(), hist, cutoff
+
+    builder = FilterBuilder(k, hash_num, nbits, slots if cutoff > 1 else 0, layout, dev)
+    if cutoff > 1:
+        for seq, n in batches():
+            builder.count_batch(seq, n)
+    for seq, n in batches():
+        builder.insert_batch(seq, n, cutoff)
+    return builder.finish(), hist, cutoff
+
+
+def build_genome_bf(
+    genome_paths: Sequence[str],
+    k: int,
+    fpr: float = 0.01,
+    hash_num: int = 3,
+    bf_bytes: Optional[int] = None,
+    num_elements: Optional[int] = None,
+    device=None,
+    batch: int = BATCH,
+) -> bloom.KmerBloomFilter:
+    """Plain BF over all genome k-mers.  Size precedence --bf >
+    --num_elements > total genome length, each through the
+    Broder–Mitzenmacher formula (src/ntedit_make_genome_bf.cpp:124-138)."""
+    dev = resolve_device(device)
+    if bf_bytes is None:
+        n = num_elements if num_elements is not None else fastx.total_length(genome_paths)
+        bf_bytes = bloom.bf_size_bytes(max(1, n), hash_num, fpr)
+    builder = FilterBuilder(k, hash_num, bf_bytes * 8, 0, "plain", dev)
+    for seq, n in device_batches(genome_paths, k, dev, batch):
+        builder.insert_batch(seq, n, 1)
+    return builder.finish()

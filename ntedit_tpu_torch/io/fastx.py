@@ -116,6 +116,12 @@ def _cat(chunks: list[bytes]) -> np.ndarray:
     return np.frombuffer(b"".join(chunks), dtype=np.uint8)
 
 
+def total_length(paths) -> int:
+    """Sum of sequence lengths (find_genome_size,
+    src/ntedit_make_genome_bf.cpp:23-34)."""
+    return sum(len(rec.seq) for p in paths for rec in read_fastx(p))
+
+
 def write_fasta(path: str, records) -> None:
     """Write (header, seq) pairs, full sequence on one line (the
     reference's output layout, ntedit.cpp:1168)."""

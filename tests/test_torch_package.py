@@ -15,7 +15,7 @@ import torch
 
 from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine.polish import Polisher
-from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "ntedit_tpu"}
@@ -44,7 +44,8 @@ def test_no_jax_or_reference_imports():
 
 def test_import_leaves_jax_out():
     code = ("import sys; import ntedit_tpu_torch, ntedit_tpu_torch.cli, "
-            "ntedit_tpu_torch.engine.polish, ntedit_tpu_torch.convert; "
+            "ntedit_tpu_torch.engine.polish, ntedit_tpu_torch.convert, "
+            "ntedit_tpu_torch.core.bfbuild; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntedit_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -137,6 +138,33 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
             fn(seq, 100, df)
         else:
             fn(seq, 100, torch.empty(3, dtype=torch.int64, device="meta"), df, 3)
+    assert fn.launches == 0
+
+
+@pytest.mark.parametrize("failure", ["build", "load"])
+@pytest.mark.parametrize("wrapper", ["kmer_hashes", "kmer_count", "kmer_insert"])
+def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
+    if failure == "build":
+        stub = tmp_path / "stub.cu"
+        stub.write_text("this does not compile\n")
+        monkeypatch.setattr(build_kernel, "SOURCE", str(stub))
+        monkeypatch.setattr(gate_kernel, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    else:
+        stub = tmp_path / "libstub.so"
+        stub.write_bytes(b"not a shared library")
+        monkeypatch.setattr(build_kernel, "build", lambda force=False: str(stub))
+    monkeypatch.setattr(build_kernel, "_lib", None)
+    seq = torch.empty(gate_kernel.padded_len(100), dtype=torch.uint8, device="meta")
+    table = torch.empty(1024, dtype=torch.uint8, device="meta")
+    words = torch.empty(1024, dtype=torch.int32, device="meta")
+    fn = getattr(build_kernel, wrapper)
+    with pytest.raises((RuntimeError, OSError)):
+        if wrapper == "kmer_hashes":
+            fn(seq, 100, 25)
+        elif wrapper == "kmer_count":
+            fn(seq, 100, 25, 3, table, 1000)
+        else:
+            fn(seq, 100, 25, 3, words, "blocked", 1024, table, 1000, 2)
     assert fn.launches == 0
 
 
