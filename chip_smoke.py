@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (ntedit_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, as a user-sized run (no options)
+    python3 chip_smoke.py            # every phase, as a user-sized run
+    python3 chip_smoke.py --against DIR   # the same, and the one-step count and insert
+                                          # kernels built from the checkout at DIR
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
@@ -20,10 +22,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
               against its plain version, and the SNV site kernel (jump 1, 3
               and k) on those candidates plus heads at both contig ends, on
               both sides of a tile edge and before N and IUPAC bytes.  On
-              the same k and lengths, with 0x00 separators added: the three
-              filter-build kernels (hashes; counts into tables of 4m + 1 to
-              4m + 3 bytes, hash_num 1 to 4; blocked and plain insertion at
-              cutoff 1 and 2) against their plain versions.
+              the same k and lengths, with 0x00 separators added: the
+              filter-build kernels against their plain versions (hashes; the
+              count's partition, bucket by bucket as multisets, and its apply,
+              into tables of 4m + 1 to 4m + 3 bytes split into 1, 3 and 7
+              slices, the last one partial, at hash_num 1 to 4; the solid
+              bits and blocked and plain insertion at cutoffs 1, 2 and 255),
+              and the count of a poly-A batch (every increment in one slot).
 3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process) on a
               seeded 50 Mbp draft with a 256 MiB blocked filter, then with a
               btllib-sized plain filter; the three output files must equal,
@@ -52,7 +57,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
               whole build by the plain versions on the card, its outputs to
               the host-only full scan, and its stages one at a time;
               ``polish --reads R --cbf -p 2 -q 254`` (a counting filter of
-              about 0.49 G slots) held the same way; ``make-genome-bf`` on
+              374 M slots) held the same way; ``make-genome-bf`` on
               the 50 Mbp draft of phase 3 (a btllib-sized plain filter) held
               to the plain build; and ``snv --reference REF --genome SAMPLE``
               on the 5 Mbp contig of phase 5, its outputs held to the
@@ -64,9 +69,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
               random-probe floor: a probe-only kernel making as many random
               probes of the same table with the same loads in flight.  The
               same for the SNV candidate kernel (blocked and plain).  The
-              three filter-build kernels on one 2^24-byte batch of phase 6's
-              reads (its tables): ms, plain ms, bytes bound and an index_add_
-              of as many ones at the same slots as a yardstick.
+              filter-build kernels on phase 6's reads, in its 2^24-byte
+              batches, at the tables polish --reads sizes for them
+              (utils/build_sweep.py): the hashes kernel on one batch; the
+              count's partition, apply and both on one batch and the whole
+              count pass; the solid bits, the insert on one batch and the
+              whole insert pass; each with its plain version's ms, its bytes
+              bound and its floor (the random-atomic floor in one slice and
+              in the whole table; the probe floor on the solid bits and on
+              the counters), the slice size and the scratch bytes.  With
+              ``--against DIR``, the one-step count and counter-reading
+              insert from DIR's sources in turns on the same batches.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -218,9 +231,12 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "probe_floor_kernelIhE": "floor_counters",
           "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
           "snv_site_rows_kernelILi0E": "site_plain", "snv_site_rows_kernelILi1E": "site_blocked",
-          "kmer_hashes_kernel": "kmer_hashes", "kmer_count_kernel": "kmer_count",
+          "kmer_hashes_kernel": "kmer_hashes",
+          "kmer_partition_kernelILb0E": "kmer_partition_count",
+          "kmer_partition_kernelILb1E": "kmer_partition_scatter",
+          "kmer_count_apply_kernel": "kmer_count_apply", "kmer_solid_bits_kernel": "kmer_solid_bits",
           "kmer_insert_kernelILi0E": "kmer_insert_plain",
-          "kmer_insert_kernelILi1E": "kmer_insert_blocked"}
+          "kmer_insert_kernelILi1E": "kmer_insert_blocked", "atomic_floor_kernel": "atomic_floor"}
 
 
 def ptxas_resources(log: str) -> dict:
@@ -354,11 +370,55 @@ def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
     return words, len(jumps), rows
 
 
-def check_build_kernels(seq_dev, n: int, k: int) -> int:
-    """The three filter-build kernels vs their plain versions on one input:
-    the hashes; counts into a table of 4m + 1 + k % 3 bytes at hash_num
-    1 + k % 4; blocked and plain (not 2^n bits) insertion at cutoff 1 and 2
-    over those counts.  Returns the number of differing elements."""
+BUILD_SLICE_BITS = 13  # slices of 8192 counters: the kernel phase's tables split 1, 3 and 7 ways
+
+
+def _bucket_multisets(bins) -> list:
+    """Each (slice, column) range of the bins' entries, sorted."""
+    import torch
+
+    cells = bins.cells()
+    ends, counts = bins.ends[:cells].tolist(), bins.counts[:cells].tolist()
+    entries = bins.entries.long() & 0xFFFFFFFF
+    return [torch.sort(entries[e - c : e]).values for e, c in zip(ends, counts)]
+
+
+def check_count(seq_dev, n: int, k: int, hash_num: int, slots: int) -> int:
+    """The count's partition (count matrix, scan and each range's entries as
+    a multiset) and apply against their plain versions, and the counters
+    against the one-step plain count; returns the number of differences."""
+    import torch
+
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    dev = seq_dev.device
+    bins = bk.Bins(slots, hash_num, n, dev, BUILD_SLICE_BITS)
+    plain = bk.Bins(slots, hash_num, n, dev, BUILD_SLICE_BITS)
+    bk.kmer_partition(seq_dev, n, k, bins)
+    bk.kmer_partition_plain(seq_dev, n, k, plain)
+    cells = bins.cells()
+    diff = int((bins.counts[:cells] != plain.counts[:cells]).sum())
+    diff += int((bins.ends[:cells] != plain.ends[:cells]).sum())
+    if not diff:
+        diff += sum(not torch.equal(a, b)
+                    for a, b in zip(_bucket_multisets(bins), _bucket_multisets(plain)))
+    counters = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
+    applied = counters.clone()
+    want = counters.clone()
+    bk.kmer_count_apply(bins, counters)
+    bk.kmer_count_apply_plain(plain, applied)
+    bk.kmer_count_plain(seq_dev, n, k, hash_num, want, slots)
+    return diff + int((counters != applied).sum()) + int((counters != want).sum())
+
+
+def check_build_kernels(seq_dev, n: int, k: int, case: int) -> int:
+    """The filter-build kernels vs their plain versions on one input: the
+    hashes; the count (partition and apply) at hash_num 1 + case % 4 into
+    a table of 4m + 1 + case % 3 bytes split into 1, 3 or 7 slices of 8192
+    counters (by case), the last one partial; the solid bits at cutoffs 1,
+    2 and 255 over those counts, and blocked and plain (not 2^n bits)
+    insertion over them (cutoff 1: no bits) against the count-min
+    reference.  Returns the number of differing elements."""
     import torch
 
     from ntedit_tpu_torch.ops import build_kernel as bk
@@ -366,24 +426,40 @@ def check_build_kernels(seq_dev, n: int, k: int) -> int:
     dev = seq_dev.device
     got, want = bk.kmer_hashes(seq_dev, n, k), bk.kmer_hashes_plain(seq_dev, n, k)
     diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
-    hash_num = 1 + k % 4
-    slots = 4 * 20_011 + 1 + k % 3
+    hash_num = 1 + case % 4
+    ways = (1, 3, 7)[case % 3]
+    slots = (ways - 1) * (1 << BUILD_SLICE_BITS) + 4 * 1000 + 1 + case % 3
+    diff += check_count(seq_dev, n, k, hash_num, slots)
     counters = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
-    plain_counters = counters.clone()
-    bk.kmer_count(seq_dev, n, k, hash_num, counters, slots)
-    bk.kmer_count_plain(seq_dev, n, k, hash_num, plain_counters, slots)
-    diff += int((counters != plain_counters).sum())
-    for layout, modulus in (("blocked", 1 << 12), ("plain", 8 * 16_411)):
-        nw = modulus if layout == "blocked" else -(-modulus // 32)
-        for cutoff in (1, 2):
+    bk.kmer_count_plain(seq_dev, n, k, hash_num, counters, slots)
+    for cutoff in (1, 2, 255):
+        solid = bk.kmer_solid_bits(counters, slots, cutoff)
+        diff += int((solid != bk.kmer_solid_bits_plain(counters, slots, cutoff)).sum())
+        for layout, modulus in (("blocked", 1 << 12), ("plain", 8 * 16_411)):
+            nw = modulus if layout == "blocked" else -(-modulus // 32)
             words = torch.zeros(nw, dtype=torch.int32, device=dev)
             plain_words = words.clone()
-            bk.kmer_insert(seq_dev, n, k, hash_num, words, layout, modulus, plain_counters,
-                           slots, cutoff)
-            bk.kmer_insert_plain(seq_dev, n, k, hash_num, plain_words, layout, modulus,
-                                 plain_counters, slots, cutoff)
+            bk.kmer_insert(seq_dev, n, k, hash_num, words, layout, modulus,
+                           solid if cutoff > 1 else None, slots)
+            bk.kmer_insert_plain(seq_dev, n, k, hash_num, plain_words, layout, modulus, counters,
+                                 slots, cutoff)
             diff += int((words != plain_words).sum())
     return diff
+
+
+def check_poly_a(dev) -> int:
+    """The count of a poly-A batch (every window one k-mer: at hash_num 1
+    every increment in one slot of one bucket) against the plain count."""
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    k = 25
+    n = 1 << 20
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: n + k - 1] = ord("A")
+    seq = buf.to(dev)
+    return sum(check_count(seq, n, k, h, 7 * (1 << BUILD_SLICE_BITS) - 3) for h in (1, 3))
 
 
 def phase_kernel() -> dict:
@@ -439,7 +515,7 @@ def phase_kernel() -> dict:
             n = L - k + 1
             buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
             buf[:L] = torch.from_numpy(build_draft[:L].copy())
-            diff = check_build_kernels(buf.to(dev), n, k)
+            diff = check_build_kernels(buf.to(dev), n, k, count["build_cases"])
             count["build_cases"] += 1
             count["build_differing"] += diff
             if diff:
@@ -457,6 +533,11 @@ def phase_kernel() -> dict:
     del big
     check_all(25, [("plain_8e9_bits", big_df, 1)], [len(draft)])
     del big_df
+    diff = check_poly_a(dev)
+    count["build_cases"] += 2
+    count["build_differing"] += diff
+    if diff:
+        bad.append({"poly_a_build_differing": diff})
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"a kernel differs from its plain version: {bad}")
@@ -908,22 +989,19 @@ def simulate_reads(genome: np.ndarray, prefix: str, seed: int) -> list:
     return paths
 
 
-def kernel_launches() -> dict:
+def _launch_counted():
     from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
-    return {"kmer_hashes": build_kernel.kmer_hashes.launches,
-            "kmer_count": build_kernel.kmer_count.launches,
-            "kmer_insert": build_kernel.kmer_insert.launches,
-            "gate_words": gate_kernel.gate_words.launches,
-            "snv_cand_words": snv_kernel.snv_cand_words.launches,
-            "snv_site_rows": snv_kernel.snv_site_rows.launches}
+    return (*build_kernel.KERNELS, gate_kernel.gate_words, snv_kernel.snv_cand_words,
+            snv_kernel.snv_site_rows)
+
+
+def kernel_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in _launch_counted()}
 
 
 def reset_launches() -> None:
-    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
-
-    for fn in (build_kernel.kmer_hashes, build_kernel.kmer_count, build_kernel.kmer_insert,
-               gate_kernel.gate_words, snv_kernel.snv_cand_words, snv_kernel.snv_site_rows):
+    for fn in _launch_counted():
         fn.launches = 0
 
 
@@ -1011,92 +1089,40 @@ def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int)
     return out
 
 
-def build_kernel_numbers(piece: np.ndarray, counters, slots: int, nbits: int, flush) -> dict:
-    """The three filter-build kernels on one batch of the reads, at the
-    blocked build's tables (``counters``: the whole build's counts): ms
-    (CUDA events, L2 flushed, tables reset before each launch), the plain
-    version's ms, the bytes bound (the ASCII once, the hashes written once,
-    one 32-byte sector read and written per distinct counter or word
-    sector touched) and an index_add_ of as many ones at the same slots
-    into an int32 table of the same length (a yardstick, not the same
-    function)."""
+def build_kernel_numbers(pieces: list, flush, against) -> dict:
+    """The filter-build kernels on the reads' batches (utils/build_sweep.py
+    for the count and insert passes, at the tables polish --reads sizes
+    for them; with ``against``, the one-step kernels of that checkout in
+    turns) and the hashes kernel on the first batch: ms (CUDA events, L2
+    flushed), the plain version's ms and the bytes bound (the ASCII once,
+    the hashes and validity written once)."""
     import torch
 
-    from ntedit_tpu_torch.core import bfbuild
-    from ntedit_tpu_torch.core import nthash as nt
     from ntedit_tpu_torch.ops import build_kernel as bk
+    from ntedit_tpu_torch.utils import build_sweep
 
     dev = torch.device("cuda")
-    k, hash_num = 25, 3
-    seq, n = next(bfbuild.upload_batches([piece], k, dev))
-    L = len(piece)
-    nw = nbits // 32
-    out = {}
-
-    # hashes
+    k = build_sweep.K
+    seqs = build_sweep.upload(pieces, dev)
+    seq, n = seqs[0]
     got = bk.kmer_hashes(seq, n, k)
     want = bk.kmer_hashes_plain(seq, n, k)
     err = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
-    can = want[0][bk.unpack_bits(want[1], n)]
-    out["kmer_hashes"] = {
-        "windows": n, "valid": int(can.numel()), "bytes": L + 8 * n + 4 * -(-n // 32),
-        "ms": time_cuda(lambda: bk.kmer_hashes(seq, n, k), 20, flush),
+    if err:
+        raise AssertionError("the hashes kernel differs from its plain version")
+    nbytes = n + k - 1 + 8 * n + 4 * -(-n // 32)
+    ms = time_cuda(lambda: bk.kmer_hashes(seq, n, k), 20, flush)
+    out = {"kmer_hashes": {
+        "windows": n, "valid": int(bk.unpack_bits(want[1], n).sum()), "bytes": nbytes, "ms": ms,
         "plain_ms": time_cuda(lambda: bk.kmer_hashes_plain(seq, n, k), 3, flush),
-        "index_add_ms": None, "differing": err}
-
-    # count, into a zeroed table of the build's size
-    slot_idx = torch.cat([nt.umod(h, slots) for h in nt.extend(can, k, hash_num)])
-    c_sectors = int(torch.unique(slot_idx >> 5).numel())
-    table = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
-    plain_table = table.clone()
-    bk.kmer_count(seq, n, k, hash_num, table, slots)
-    bk.kmer_count_plain(seq, n, k, hash_num, plain_table, slots)
-    err = int((table != plain_table).sum())
-    yard = torch.zeros(slots, dtype=torch.int32, device=dev)
-    ones = torch.ones_like(slot_idx, dtype=torch.int32)
-    out["kmer_count"] = {
-        "slots": slots, "increments": int(slot_idx.numel()), "sectors": c_sectors,
-        "bytes": L + 2 * 32 * c_sectors,
-        "ms": time_cuda(lambda: bk.kmer_count(seq, n, k, hash_num, table, slots), 20, flush,
-                        reset=table.zero_),
-        "plain_ms": time_cuda(lambda: bk.kmer_count_plain(seq, n, k, hash_num, table, slots), 3,
-                              flush, reset=table.zero_),
-        "index_add_ms": time_cuda(lambda: yard.index_add_(0, slot_idx, ones), 20, flush),
-        "differing": err}
-    del table, plain_table, yard, ones, slot_idx
-
-    # insert at cutoff 2, reading the whole build's counts
-    full = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
-    full[:slots] = torch.from_numpy(counters).to(dev)
-    ok = bk.min_count(can, k, hash_num, full, slots).long() >= 2
-    widx = can[ok] & (nw - 1)
-    w_sectors = int(torch.unique(widx >> 3).numel())
-    words = torch.zeros(nw, dtype=torch.int32, device=dev)
-    plain_words = words.clone()
-    bk.kmer_insert(seq, n, k, hash_num, words, "blocked", nw, full, slots, 2)
-    bk.kmer_insert_plain(seq, n, k, hash_num, plain_words, "blocked", nw, full, slots, 2)
-    err = int((words != plain_words).sum())
-    yard = torch.zeros(nw, dtype=torch.int32, device=dev)
-    ones = torch.ones_like(widx, dtype=torch.int32)
-    out["kmer_insert"] = {
-        "words": nw, "inserted": int(widx.numel()), "counter_sectors_read": c_sectors,
-        "word_sectors": w_sectors, "bytes": L + 32 * c_sectors + 2 * 32 * w_sectors,
-        "ms": time_cuda(lambda: bk.kmer_insert(seq, n, k, hash_num, words, "blocked", nw, full,
-                                               slots, 2), 20, flush, reset=words.zero_),
-        "plain_ms": time_cuda(lambda: bk.kmer_insert_plain(seq, n, k, hash_num, words, "blocked",
-                                                           nw, full, slots, 2), 3, flush,
-                              reset=words.zero_),
-        "index_add_ms": time_cuda(lambda: yard.index_add_(0, widx, ones), 20, flush),
-        "differing": err}
-    for row in out.values():
-        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        if row["differing"]:
-            raise AssertionError(f"a build kernel differs from its plain version: {out}")
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "floor_ms": build_sweep.copy_ms(nbytes, flush),
+        "differing": err}}
+    old = build_sweep.OneStep(against) if against else None
+    out.update(build_sweep.build_numbers(seqs, flush, old))
     return out
 
 
-def phase_filter_build(work: str) -> dict:
+def phase_filter_build(work: str, against=None) -> dict:
     """polish --reads (blocked, cutoff 2) and --cbf, make-genome-bf and
     snv --genome through the command line on the card, each filter held to
     the plain versions' build and each output to the host-only full scan."""
@@ -1123,7 +1149,8 @@ def phase_filter_build(work: str) -> dict:
     # polish --reads: the main path of the build, blocked, cutoff 2
     wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
                                     str(k), "-t", "8", "-b", os.path.join(work, "fb")], work)
-    for name in ("kmer_hashes", "kmer_count", "kmer_insert", "gate_words"):
+    for name in ("kmer_hashes", "kmer_partition", "kmer_count_apply", "kmer_solid_bits",
+                 "kmer_insert", "gate_words"):
         if launches[name] <= 0:
             raise AssertionError(f"polish --reads never launched {name}: {launches}")
     hist = bfbuild.Histogram.load(f"{prefix}_k{k}.hist", k=k)
@@ -1145,7 +1172,7 @@ def phase_filter_build(work: str) -> dict:
     truth_absent = int((~df.contains([torch.unique(truth_can)])).sum())
     del kmers, mult, solid, truth_can, df
     nbits, slots, cbf_slots = bfbuild.filter_sizes(hist, 2)
-    counters, words = plain_build(pieces, k, 3, nbits, slots, "blocked", 2)
+    _, words = plain_build(pieces, k, 3, nbits, slots, "blocked", 2)
     same_bf = isinstance(bf, bloom.BlockedKmerBloomFilter) and np.array_equal(bf.words, words)
     cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
     ref_prefix = os.path.join(work, "fb_ref")
@@ -1164,15 +1191,15 @@ def phase_filter_build(work: str) -> dict:
         raise AssertionError(f"polish --reads: {out['polish_reads']}")
     del bf
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
-    out["kernel_numbers"] = build_kernel_numbers(pieces[0], counters, slots, nbits, flush)
-    del counters, words, flush
+    out["kernel_numbers"] = build_kernel_numbers(pieces, flush, against)
+    del words, flush
     torch.cuda.empty_cache()
 
     # polish --reads --cbf: the counting filter of every valid k-mer
     wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
                                     str(k), "-t", "8", "--cbf", "-p", "2", "-q", "254", "-b",
                                     os.path.join(work, "fbc")], work)
-    if launches["kmer_count"] <= 0 or launches["gate_words"] <= 0:
+    if min(launches[name] for name in ("kmer_partition", "kmer_count_apply", "gate_words")) <= 0:
         raise AssertionError(f"polish --cbf never launched its kernels: {launches}")
     cbf = bloom.load_any(f"{prefix}_k{k}.cbf")
     plain_counters, _ = plain_build(pieces, k, 3, 0, cbf_slots, "counting", 1)
@@ -1502,9 +1529,15 @@ def phase_numbers(power: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR", default=None,
+                    help="also time the one-step count and insert kernels of the checkout at DIR")
+    against = ap.parse_args(argv).against
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1539,7 +1572,7 @@ def main() -> int:
         for row in snv_rows:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             emit(row)
-        build = phase_filter_build(work)
+        build = phase_filter_build(work, against)
         build_numbers = build.pop("kernel_numbers")
         emit(build)
     torch.cuda.reset_peak_memory_stats()
@@ -1597,24 +1630,40 @@ def main() -> int:
                                                          "plain_ms")}
                         for layout, r in parts.items()},
         })
-    # the filter-build kernels: launches from polish --reads, times on one
-    # 2^24-byte batch of its reads at its tables
-    for name, line in (("kmer_hashes", 49), ("kmer_count", 293), ("kmer_insert", 319)):
-        one = build_numbers[name]
+    # the filter-build kernels: launches from polish --reads, times on its
+    # batches at its tables (the count and insert passes: build_sweep)
+    count, insert = build_numbers["count"], build_numbers["insert"]
+    hashes = build_numbers["kmer_hashes"]
+    build_ok = kernel["build_differing"] == 0  # build_numbers raised on any other difference
+    for name, line, one, extra in (
+            ("kmer_hashes", 49, hashes, {}),
+            ("kmer_partition", 293, count["partition"],
+             {"slice_bits": count["slice_bits"], "scratch_bytes": count["scratch_bytes"],
+              "count_ms": count["count"]["ms"], "count_bound_ms": count["count"]["bound_ms"],
+              "count_pass_ms": count["count"]["pass_ms"], "other_count_ms": count["count"]["other_ms"],
+              "other_count_pass_ms": count["count"]["other_pass_ms"]}),
+            ("kmer_count_apply", 293, count["apply"], {"floor_table_ms": count["apply"]["floor_table_ms"]}),
+            ("kmer_solid_bits", 319, insert["solid_bits"], {}),
+            ("kmer_insert", 319, insert["insert"],
+             {"pass_ms": insert["pass"]["ms"], "pass_ms_per_batch": insert["pass"]["ms_per_batch"],
+              "pass_bound_ms": insert["pass"]["bound_ms"], "other_pass_ms": insert["pass"]["other_ms"],
+              "floor_counters_ms": insert["insert"]["floor_counters_ms"]})):
         lines.append({
             "name": name,
             "route": "cuda",
             "source": "ntedit_tpu_torch/csrc/build_kernel.cu",
             "replaces": f"ntedit_tpu/core/bfbuild.py:{line}",
             "launches": build["polish_reads"]["launches"][name],
-            "matches_plain": one["differing"] + kernel["build_differing"] == 0,
-            "max_abs_err": one["differing"],
+            "matches_plain": build_ok,
+            "max_abs_err": {"kmer_hashes": hashes, "kmer_partition": count,
+                            "kmer_count_apply": count}.get(name, insert)["differing"],
             "ms": one["ms"],
             "plain_ms": one["plain_ms"],
             "bound_ms": one["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-            "index_add_ms": one["index_add_ms"],
+            "floor_ms": one["floor_ms"],
+            **extra,
         })
     emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

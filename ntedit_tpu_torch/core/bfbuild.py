@@ -18,10 +18,12 @@ make_genome_bf path of the JAX package's ``core/bfbuild.py``.
 The records are read on the host and joined with a 0x00 separator into
 batches of at most ``batch`` bytes, uploaded as ASCII; consecutive pieces
 of a long buffer overlap by exactly k - 1 bytes, so every window is seen
-once.  Each pass over a batch is one kernel (ops/build_kernel.py): the
-canonical hashes for the histogram, the count-min increments, the
-threshold insertion.  The histogram's unique-count and the sampling are
-torch ops on the device.  ``device="cpu"`` runs the kernels' plain
+once.  Each pass over a batch runs the kernels of ops/build_kernel.py:
+the canonical hashes for the histogram; the count-min increments, binned
+by slice of the counter table and then applied slice by slice; the
+threshold insertion, which reads solid bits packed once per pass from
+the counters.  The histogram's unique-count and the sampling are torch
+ops on the device.  ``device="cpu"`` runs the kernels' plain
 versions on the CPU.  Only valid windows (all k bytes ACGTacgt) count.
 
 Filters, histograms and their files equal the JAX package's for the same
@@ -247,7 +249,16 @@ class FilterBuilder:
     count pass; 0 means none (no ``count_batch``, insertion at cutoff 1
     only).  The tables live on the device, padded to whole 32-bit words for
     the kernels' atomics, and ``finish`` trims them.  Every pass runs on
-    the current stream, so insertion sees the finished count pass."""
+    the current stream, so insertion sees the finished count pass.
+
+    A count batch is binned by slice of ``2^build_kernel.SLICE_BITS``
+    counters into bins allocated at the first ``count_batch`` (4 B per
+    increment: ``hash_num`` times the batch's windows; again only for a
+    larger batch), and applied slice by slice.  The first ``insert_batch``
+    above cutoff 1 packs the counters at or above its cutoff into solid
+    bits (one bit per slot), which every insertion of the pass then reads;
+    from then on a ``count_batch`` (the bits would be stale) or another
+    cutoff raises."""
 
     def __init__(self, k: int, hash_num: int, nbits: int, slots: int,
                  layout: str = "blocked", device=None):
@@ -272,6 +283,9 @@ class FilterBuilder:
             raise ValueError("a counting filter needs at least one slot")
         if slots < 0:
             raise ValueError(f"slots must be >= 0, got {slots}")
+        if slots and hash_num > build_kernel.MAX_HASH_NUM:
+            raise ValueError(f"the count pass takes at most {build_kernel.MAX_HASH_NUM} hashes, "
+                             f"got {hash_num}")
         self.k = k
         self.hash_num = hash_num
         self.layout = layout
@@ -283,6 +297,9 @@ class FilterBuilder:
         nwords = -(-self.nbits // 32)
         self.words = (torch.zeros(nwords, dtype=torch.int32, device=self.device)
                       if layout != "counting" else None)
+        self.bins = None   # the count pass's scratch, at the first count_batch
+        self.solid = None  # the solid bits, at the first insert_batch above cutoff 1
+        self.solid_cutoff = None
         self._finished = False
 
     @property
@@ -299,7 +316,13 @@ class FilterBuilder:
         self._live()
         if self.counters is None:
             raise RuntimeError("builder has no counter table (slots=0)")
-        build_kernel.kmer_count(seq, n, self.k, self.hash_num, self.counters, self.slots)
+        if self.solid is not None:
+            raise RuntimeError("count_batch after an insert_batch above cutoff 1: the solid "
+                               "bits already read the counters")
+        if self.bins is None or n > self.bins.windows:
+            self.bins = build_kernel.Bins(self.slots, self.hash_num, max(1, n), self.device)
+        build_kernel.kmer_count(seq, n, self.k, self.hash_num, self.counters, self.slots,
+                                self.bins)
 
     def insert_batch(self, seq: torch.Tensor, n: int, cutoff: int) -> None:
         """Insert the valid windows of [0, n) whose count-min read is at
@@ -307,10 +330,20 @@ class FilterBuilder:
         self._live()
         if self.words is None:
             raise RuntimeError("a counting builder has no bit array to insert into")
-        if cutoff > 1 and self.counters is None:
-            raise RuntimeError("insertion above cutoff 1 needs the counter table")
+        solid = None
+        if cutoff > 1:
+            if self.counters is None:
+                raise RuntimeError("insertion above cutoff 1 needs the counter table")
+            if self.solid is None:
+                self.bins = None  # the count pass is over
+                self.solid = build_kernel.kmer_solid_bits(self.counters, self.slots, cutoff)
+                self.solid_cutoff = cutoff
+            elif cutoff != self.solid_cutoff:
+                raise RuntimeError(f"insert_batch at cutoff {cutoff} after solid bits at "
+                                   f"{self.solid_cutoff}: one cutoff per builder")
+            solid = self.solid
         build_kernel.kmer_insert(seq, n, self.k, self.hash_num, self.words, self.layout,
-                                 self.modulus, self.counters, self.slots, cutoff)
+                                 self.modulus, solid, self.slots)
 
     def finish(self):
         """Download the filter: BlockedKmerBloomFilter, KmerBloomFilter or
@@ -319,10 +352,10 @@ class FilterBuilder:
         self._finished = True
         if self.layout == "counting":
             counters = self.counters[: self.slots].cpu().numpy()
-            self.counters = None
+            self.counters = self.bins = None
             return bloom.KmerCountingBloomFilter8(counters, self.hash_num, self.k)
         words = self.words.cpu().numpy().view(np.uint32)
-        self.words = self.counters = None  # device tables released
+        self.words = self.counters = self.solid = self.bins = None  # device tables released
         if self.layout == "blocked":
             return bloom.BlockedKmerBloomFilter(words, self.hash_num, self.k)
         data = words.view(np.uint8)[: self.nbits // 8].copy()

@@ -197,6 +197,28 @@ def test_filter_builder_matches_device_builder(reads, layout, cutoff):
     assert got.pop_count > 0
 
 
+@pytest.fixture(scope="module")
+def jax_blocked_build(reads):
+    """DeviceFilterBuilder's counters and words: blocked, cutoff 2, 2^12 slots."""
+    paths, _, _ = reads
+    return _jax_builder(paths, 25, 3, 1 << 16, 1 << 12, "blocked", 2)
+
+
+@pytest.mark.parametrize("slice_bits,ways", [(12, 1), (10, 4), (9, 8)])
+def test_filter_builder_slices_match_device_builder(reads, jax_blocked_build, monkeypatch,
+                                                   slice_bits, ways):
+    """The count pass binned by slice, over several batches, with the
+    table split 1, 4 and 8 ways, then insertion over the solid bits: the
+    counters and words of DeviceFilterBuilder."""
+    paths, _, _ = reads
+    want_c, want = jax_blocked_build
+    monkeypatch.setattr(build_kernel, "SLICE_BITS", slice_bits)
+    got_c, got = _port_builder(paths, 25, 3, 1 << 16, 1 << 12, "blocked", 2)
+    assert ((1 << 12) - 1) >> slice_bits == ways - 1
+    assert np.array_equal(got_c, want_c) and got_c.max() == 255
+    assert np.array_equal(got.words, want.words)
+
+
 # ---------------------------------------------------------------------------
 # build_read_filter and build_genome_bf against the JAX package's
 # ---------------------------------------------------------------------------
@@ -426,6 +448,7 @@ def test_insert_kernel_matches_plain_on_the_card(layout, modulus, cutoff):
     nw = modulus if layout == "blocked" else -(-modulus // 32)
     got = torch.zeros(nw, dtype=torch.int32, device="cuda")
     want = got.clone()
-    build_kernel.kmer_insert(seq, n, 25, 3, got, layout, modulus, counters, slots, cutoff)
+    solid = build_kernel.kmer_solid_bits(counters, slots, cutoff) if cutoff > 1 else None
+    build_kernel.kmer_insert(seq, n, 25, 3, got, layout, modulus, solid, slots)
     build_kernel.kmer_insert_plain(seq, n, 25, 3, want, layout, modulus, counters, slots, cutoff)
     assert torch.equal(got, want) and int(got.count_nonzero()) > 0

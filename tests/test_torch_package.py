@@ -142,7 +142,8 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
 
 
 @pytest.mark.parametrize("failure", ["build", "load"])
-@pytest.mark.parametrize("wrapper", ["kmer_hashes", "kmer_count", "kmer_insert"])
+@pytest.mark.parametrize("wrapper", ["kmer_hashes", "kmer_count", "kmer_insert", "kmer_partition",
+                                     "kmer_count_apply", "kmer_solid_bits"])
 def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -163,9 +164,18 @@ def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_
             fn(seq, 100, 25)
         elif wrapper == "kmer_count":
             fn(seq, 100, 25, 3, table, 1000)
+        elif wrapper == "kmer_partition":
+            fn(seq, 100, 25, build_kernel.Bins(1000, 3, 100, "meta"))
+        elif wrapper == "kmer_count_apply":
+            fn(build_kernel.Bins(1000, 3, 100, "meta"), table)
+        elif wrapper == "kmer_solid_bits":
+            fn(table, 1000, 2)
         else:
-            fn(seq, 100, 25, 3, words, "blocked", 1024, table, 1000, 2)
-    assert fn.launches == 0
+            fn(seq, 100, 25, 3, words, "blocked", 1024, words, 1000)
+    # kmer_count is no kernel of its own: it launches the partition and the apply
+    launched = (build_kernel.kmer_partition, build_kernel.kmer_count_apply) \
+        if wrapper == "kmer_count" else (fn,)
+    assert all(f.launches == 0 for f in launched)
 
 
 def card_draft(rng, length=30_000):
