@@ -21,23 +21,36 @@ Phases, each printing one JSON line; any failure exits nonzero:
               same grid, blocked and plain filters: the SNV candidate kernel
               against its plain version, and the SNV site kernel (jump 1, 3
               and k) on those candidates plus heads at both contig ends, on
-              both sides of a tile edge and before N and IUPAC bytes.  On
-              the same k and lengths, with 0x00 separators added: the
+              both sides of a tile edge and before N and IUPAC bytes; the
+              polish site-row kernel (jump 1, 3 and k) and the candidate-
+              mask kernel on the gates of the same inputs plus those heads.
+              On the same k and lengths, with 0x00 separators added: the
               filter-build kernels against their plain versions (hashes; the
               count's partition, bucket by bucket as multisets, and its apply,
               into tables of 4m + 1 to 4m + 3 bytes split into 1, 3 and 7
               slices, the last one partial, at hash_num 1 to 4; the solid
               bits and blocked and plain insertion at cutoffs 1, 2 and 255),
               and the count of a poly-A batch (every increment in one slot).
-3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process) on a
-              seeded 50 Mbp draft with a 256 MiB blocked filter, then with a
-              btllib-sized plain filter; the three output files must equal,
-              byte for byte, a host-only full sequential scan of the same
-              C++ engine rendered by the same writers.
+3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process, the
+              default pipelined engine), then the same with the polish site
+              rows on (through the function the command line calls, which
+              takes the switch), on a seeded 50 Mbp draft with a 256 MiB
+              blocked filter, then with a btllib-sized plain filter; each
+              run's three output files must equal, byte for byte, a
+              host-only full sequential scan of the same C++ engine rendered
+              by the same writers.  With the blocked filter also
+              ``Polisher(engine="native", cand_masks=True)`` through the
+              Python API, held the same way; the site rows and the masks
+              each on and off in turns, 5 rounds (engine wall and repair
+              alone); and the two polish kernels at the path's shapes
+              (site rows on one 2^22-head chunk's gates, masks on the 30
+              Mbp contig's gates) against their plain versions, their bytes
+              bound, the probe floor and a torch.take yardstick.
 4. counting - the same check with a count-min filter and -p 2 -q 254, in
               polish mode and with -s 1: the SNV path of the configurations
               the candidate kernel does not serve (the gate kernel with snv
               on, every valid head a hint for the whole-contig engine).
+              Neither polish row nor mask kernel may run there.
 5. snv      - ``engine -s 1 -t 8`` on a 50 Mbp reference with a 256 MiB
               blocked filter that holds a copy of it with substitutions
               (about 1 per kbp): with the device's site rows and without,
@@ -230,7 +243,10 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "gate_words_kernelILi2E": "counting", "probe_floor_kernelIjE": "floor_words",
           "probe_floor_kernelIhE": "floor_counters",
           "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
-          "snv_site_rows_kernelILi0E": "site_plain", "snv_site_rows_kernelILi1E": "site_blocked",
+          "site_rows_kernelILi0ELb0E": "site_plain", "site_rows_kernelILi1ELb0E": "site_blocked",
+          "site_rows_kernelILi0ELb1E": "polish_site_plain",
+          "site_rows_kernelILi1ELb1E": "polish_site_blocked",
+          "cand_masks_kernelILi0E": "masks_plain", "cand_masks_kernelILi1E": "masks_blocked",
           "kmer_hashes_kernel": "kmer_hashes",
           "kmer_partition_kernelILb0E": "kmer_partition_count",
           "kmer_partition_kernelILb1E": "kmer_partition_scatter",
@@ -370,6 +386,24 @@ def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
     return words, len(jumps), rows
 
 
+def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
+    """The polish site-row and candidate-mask kernels vs their plain
+    versions on one input, on the contig's gates (cluster starts, later
+    gates and IUPAC-forced ones) plus the heads of ``site_heads``: (row
+    cases, differing rows, differing masks)."""
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+
+    gates = site_heads(gate_kernel.gate_words_plain(seq_dev, n, df), draft, n, df.k)
+    rows = 0
+    for jump in jumps:
+        got = snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump)
+        want = snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump)
+        rows += int((got != want).any(1).sum())
+    got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
+    masks = int((got != snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df)).sum())
+    return len(jumps), rows, masks
+
+
 BUILD_SLICE_BITS = 13  # slices of 8192 counters: the kernel phase's tables split 1, 3 and 7 ways
 
 
@@ -481,7 +515,9 @@ def phase_kernel() -> dict:
     build_draft = draft.copy()
     build_draft[rng.integers(0, len(draft), size=40)] = 0
     count = {"cases": 0, "differing_words": 0, "cand_cases": 0, "cand_differing_words": 0,
-             "site_cases": 0, "site_differing_rows": 0, "build_cases": 0, "build_differing": 0}
+             "site_cases": 0, "site_differing_rows": 0, "polish_site_cases": 0,
+             "polish_site_differing_rows": 0, "mask_cases": 0, "mask_differing": 0,
+             "build_cases": 0, "build_differing": 0}
     bad = []
 
     def check_all(k, filters, lengths):
@@ -509,6 +545,14 @@ def phase_kernel() -> dict:
                 if words or rows:
                     bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
                                 "site_rows": rows})
+                cases, rows, masks = check_polish_kernels(seq_dev, draft[:L], n, df, jumps)
+                count["polish_site_cases"] += cases
+                count["polish_site_differing_rows"] += rows
+                count["mask_cases"] += 1
+                count["mask_differing"] += masks
+                if rows or masks:
+                    bad.append({"k": k, "filter": name, "L": L, "polish_rows": rows,
+                                "masks": masks})
 
     def check_build(k, lengths):
         for L in lengths:
@@ -585,25 +629,29 @@ def _same_outputs(a: str, b: str) -> dict:
     return out
 
 
-def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_args,
-                  cfg) -> dict:
-    """Run the port's engine CLI and the host-only reference; compare."""
+def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cfg,
+                  cli_args=(), also=None) -> dict:
+    """Run the port's engine CLI and the host-only reference; compare.
+    ``also`` maps a name to keywords of the function the command line calls
+    (cli._run_engine, which also takes the switches it has no flag for):
+    each such run follows, is held to the same reference on all three
+    files, and reports under its name.  The launch counts are set to 0 just
+    before each run and read just after."""
     from ntedit_tpu_torch import cli
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.io import fastx
-    from ntedit_tpu_torch.ops import gate_kernel
 
     bf_path = os.path.join(work, f"{tag}.bf")
     t0 = time.perf_counter()
     host_bf.save(bf_path)
     save_s = time.perf_counter() - t0
     prefix = os.path.join(work, tag)
-    gate_kernel.gate_words.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cli.main(["engine", "-r", bf_path, "-f", draft_path, "-b", prefix, "--device", "cuda",
               *cli_args])
     wall = time.perf_counter() - t0
-    launches = gate_kernel.gate_words.launches
+    launches = kernel_launches()
     with open(prefix + "_changes.tsv") as f:
         records = sum(1 for _ in f) - 1
     ref_prefix = prefix + "_ref"
@@ -620,23 +668,147 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cli_arg
                 resid[kk] = resid.get(kk, 0) + v
     bases = sum(len(r.seq) for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len)
     out = {"phase": tag, "bp": bases, "wall_s": wall, "bp_per_s": bases / wall,
-           "launches": launches, "records": records, "reference_full_scan_s": ref_s,
-           "filter_save_s": save_s,
+           "launches": launches["gate_words"], "site_row_launches": launches["polish_site_rows"],
+           "mask_launches": launches["polish_cand_masks"], "records": records,
+           "reference_full_scan_s": ref_s, "filter_save_s": save_s,
            "byte_identical": same, "residual_vs_truth": resid}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
-    if launches <= 0:
+    if launches["gate_words"] <= 0:
         raise AssertionError(f"{tag}: the gate kernel was never launched")
+    for name, kw in (also or {}).items():
+        other = f"{prefix}_{name}"
+        reset_launches()
+        t0 = time.perf_counter()
+        cli._run_engine(bf_path, draft_path, other, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        same = _same_outputs(other, ref_prefix)
+        out[name] = {"engine_kw": kw, "wall_s": wall, "bp_per_s": bases / wall,
+                     "launches": launches["gate_words"],
+                     "site_row_launches": launches["polish_site_rows"],
+                     "mask_launches": launches["polish_cand_masks"], "byte_identical": same}
+        if not all(same.values()):
+            raise AssertionError(f"{tag} {name}: outputs differ from the host-only full scan: "
+                                 f"{same}")
+        if launches["gate_words"] <= 0:
+            raise AssertionError(f"{tag} {name}: the gate kernel was never launched")
+    return out
+
+
+def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
+               threads: int) -> dict:
+    """``Polisher(engine="native", cand_masks=True)`` through the Python API
+    (the command line has no engine switch) over the draft, rendered by the
+    command line's writers and held to the host-only full scan at
+    ``ref_prefix``.  The launch counts are set to 0 just before the run and
+    read just after."""
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx, writers
+
+    prefix = os.path.join(work, tag)
+    reset_launches()
+    t0 = time.perf_counter()
+    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
+    pol = Polisher(host_bf, None, cfg, device="cuda", engine="native", cand_masks=True)
+    records = 0
+    with open(prefix + "_edited.fa", "w") as dfout, \
+         open(prefix + "_changes.tsv", "w") as rfout, \
+         open(prefix + "_variants.vcf", "w") as vfout:
+        rfout.write(writers.changes_tsv_header(cfg.k, cfg.jump, False))
+        vfout.write(writers.vcf_header(draft_path))
+        for res in pol.polish((r.header, r.seq) for r in fastx.read_fastx(draft_path)):
+            writers.write_contig(res, dfout, rfout, vfout, {})
+            records += len(res.subs)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    same = _same_outputs(prefix, ref_prefix)
+    out = {"engine": "native", "cand_masks": True, "wall_s": wall, "records": records,
+           "launches": launches["gate_words"], "mask_launches": launches["polish_cand_masks"],
+           "site_row_launches": launches["polish_site_rows"], "byte_identical": same}
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
+    if launches["polish_cand_masks"] <= 0 or launches["gate_words"] <= 0:
+        raise AssertionError(f"{tag}: a kernel of the native path was never launched: {launches}")
+    return out
+
+
+def on_off_rounds(host_bf, draft_path: str, threads: int, rounds: int = 5) -> dict:
+    """Polish mode's two switches, each on and off in turns (on, off; then
+    off, on) for ``rounds`` rounds: the site rows with the pipelined engine,
+    the candidate masks with the native engine.  Each round times the
+    engine's wall (Polisher.polish over the draft, two contigs in flight)
+    and the repair alone from the passes' precomputed results (the
+    pipelined repair fed the chunks with or without their rows; the
+    segmented repair with or without the masks).  A switch is "kept" when
+    its run is no slower in at least 4 rounds of 5 (PERF.md)."""
+    from ntedit_tpu_torch.engine import flag, native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx
+
+    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
+    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
+    pols = {("rows", on): Polisher(host_bf, None, cfg, device="cuda", site_rows=on)
+            for on in (True, False)}
+    pols.update({("masks", on): Polisher(host_bf, None, cfg, device="cuda", engine="native",
+                                         cand_masks=on) for on in (True, False)})
+    df = pols["rows", True].df
+    with_rows = [list(flag.iter_polish_site_chunks(r.seq, df, cfg.jump)) for r in recs]
+    without = [[(f, g) for f, g, _ in c] for c in with_rows]
+    gates = [np.concatenate([g for _, g in c]) for c in without]
+    masks = [flag.polish_candidate_masks(r.seq, df, g) for r, g in zip(recs, gates)]
+
+    def repair(switch, on):
+        if switch == "rows":
+            chunks = with_rows if on else without
+            return [native_repair.polish_contig_pipelined(
+                host_bf, None, cfg, r.header, r.seq, iter(c), threads=threads)
+                for r, c in zip(recs, chunks)]
+        return [native_repair.polish_contig_segmented(
+            host_bf, None, cfg, r.header, r.seq, g, threads=threads, gate_cand=m if on else None)
+            for r, g, m in zip(recs, gates, masks)]
+
+    times = {(sw, what, on): [] for sw in ("rows", "masks") for what in ("engine", "repair")
+             for on in (True, False)}
+    edited = {}
+    for i in range(rounds):
+        for switch in ("rows", "masks"):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                t0 = time.perf_counter()
+                results = list(pols[switch, on].polish((r.header, r.seq) for r in recs))
+                times[switch, "engine", on].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                again = repair(switch, on)
+                times[switch, "repair", on].append(time.perf_counter() - t0)
+                for res in results + again:
+                    if edited.setdefault(res.header, res.edited) != res.edited:
+                        raise AssertionError(f"{switch} {on}: {res.header} differs")
+    out = {"rounds": rounds, "threads": threads}
+    for switch in ("rows", "masks"):
+        row = {}
+        for what in ("engine", "repair"):
+            on, off = times[switch, what, True], times[switch, what, False]
+            row[f"{what}_s"] = {"on": on, "off": off}
+            row[f"{what}_on_no_slower"] = sum(a <= b for a, b in zip(on, off))
+        row["keep_on"] = row["engine_on_no_slower"] >= 4
+        out[switch] = row
+    out["rows"]["valid_rows"] = int(sum(int((r[:, 0] & 1).sum()) for c in with_rows
+                                        for _, _, r in c))
+    out["masks"]["informative_masks"] = int(sum(int((m != 0xFF).sum()) for m in masks))
     return out
 
 
 def time_split(host_bf, draft_path: str, threads: int) -> dict:
     """The main path's stages one at a time, none overlapped: read the
-    draft, upload the filter, the gate pass of every contig, the threaded
-    repair from those gates, and rendering the outputs."""
+    draft, upload the filter, the gate pass of every contig (and, for
+    comparison, the gate pass with its site rows and the candidate-mask
+    pass), the threaded repair from those gates, and rendering the
+    outputs."""
     import io
 
-    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine import flag, native_repair
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
     from ntedit_tpu_torch.io import fastx, writers
@@ -649,10 +821,25 @@ def time_split(host_bf, draft_path: str, threads: int) -> dict:
     t0 = time.perf_counter()
     pol = Polisher(host_bf, None, cfg, device="cuda")
     out["filter_upload_s"] = time.perf_counter() - t0
+    # one untimed pass of each over the longest contig first, so that no
+    # timed pass carries the warm-up of the ones after it
+    longest = max(recs, key=lambda r: len(r.seq))
+    flag.polish_candidate_masks(longest.seq, pol.df, pol.gate_positions(longest.seq))
+    list(flag.iter_polish_site_chunks(longest.seq, pol.df, cfg.jump))
     t0 = time.perf_counter()
     hints = [pol.gate_positions(r.seq) for r in recs]
     out["gate_pass_s"] = time.perf_counter() - t0
     out["gates"] = int(sum(len(h) for h in hints))
+    t0 = time.perf_counter()
+    rows = [list(flag.iter_polish_site_chunks(r.seq, pol.df, cfg.jump)) for r in recs]
+    out["gate_and_rows_pass_s"] = time.perf_counter() - t0
+    out["valid_rows"] = int(sum(int((x[:, 0] & 1).sum()) for c in rows for _, _, x in c))
+    out["exact_gates"] = int(sum(int((x[:, 0] & 32 != 0).sum()) for c in rows for _, _, x in c))
+    t0 = time.perf_counter()
+    masks = [flag.polish_candidate_masks(r.seq, pol.df, h) for r, h in zip(recs, hints)]
+    out["mask_pass_s"] = time.perf_counter() - t0
+    out["informative_masks"] = int(sum(int((m != 0xFF).sum()) for m in masks))
+    del rows, masks
     t0 = time.perf_counter()
     results = [native_repair.polish_contig_pipelined(
         host_bf, None, cfg, r.header, r.seq, [(len(r.seq) - cfg.k + 1, h)], threads=threads)
@@ -707,17 +894,31 @@ def phase_main(work: str) -> list:
         blk.insert_seq(t)
     build_s = time.perf_counter() - t0
     cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
-    out = [run_and_check("main_blocked", work, blk, draft_path, truths, ["-t", "8"], cfg)]
+    # the default path (the command line, -t 8), then the same with polish
+    # site rows on (off by default: the command line has no flag)
+    args = ["-t", "8"]
+    rows_on = {"site_rows": dict(threads=8, site_rows=True)}
+    out = [run_and_check("main_blocked", work, blk, draft_path, truths, cfg, args, rows_on)]
     out[0].update(simulate_s=sim_s, filter_build_s=build_s, filter_bytes=blk.bytes,
                   contigs=lengths, split=time_split(blk, draft_path, 8))
+    out[0]["native"] = run_native("main_native", work, blk, draft_path,
+                                  os.path.join(work, "main_blocked_ref"), 8)
+    out[0]["on_off"] = on_off_rounds(blk, draft_path, 8)
+    out[0]["polish_kernels"] = polish_kernel_numbers(drafts[0], blk, cfg.jump)
     del blk
     t0 = time.perf_counter()
     pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(n_kmers, 3, 0.001), 3, k)
     for t in truths:
         pl.insert_seq(t)
     build_s = time.perf_counter() - t0
-    out.append(run_and_check("main_plain", work, pl, draft_path, truths, ["-t", "8"], cfg))
-    out[1].update(filter_build_s=build_s, filter_bytes=pl.bytes)
+    out.append(run_and_check("main_plain", work, pl, draft_path, truths, cfg, args, rows_on))
+    out[1].update(filter_build_s=build_s, filter_bytes=pl.bytes,
+                  polish_kernels=polish_kernel_numbers(drafts[0], pl, cfg.jump))
+    for row in out:
+        if row["site_row_launches"] or row["mask_launches"]:
+            raise AssertionError(f"{row['phase']}: a polish row or mask kernel ran by default")
+        if row["site_rows"]["site_row_launches"] <= 0:
+            raise AssertionError(f"{row['phase']}: the polish site-row kernel was never launched")
     return out
 
 
@@ -740,14 +941,17 @@ def phase_counting(work: str) -> list:
     simulate.fill_counts(cbf, drafts[0][: length // 2])
     cfg = EngineConfig(k=k, hash_num=3, threads=1, min_threshold=2, max_threshold=254).validate()
     args = ["-t", "8", "-p", "2", "-q", "254"]
-    out = [run_and_check("counting", work, cbf, draft_path, truths, args, cfg)]
+    out = [run_and_check("counting", work, cbf, draft_path, truths, cfg, args)]
     # SNV mode with a filter the candidate kernel does not take: the gate
     # kernel with snv on hints every valid head to the whole-contig engine
     snv_cfg = dataclasses.replace(cfg, snv=True).validate()
-    out.append(run_and_check("counting_snv", work, cbf, draft_path, truths, args + ["-s", "1"],
-                             snv_cfg))
+    out.append(run_and_check("counting_snv", work, cbf, draft_path, truths, snv_cfg,
+                             args + ["-s", "1"]))
     if out[1]["records"] <= 0:
         raise AssertionError("counting_snv: no SNV record")
+    for row in out:  # neither polish pass serves a counting filter
+        if row["site_row_launches"] or row["mask_launches"]:
+            raise AssertionError(f"{row['phase']}: a polish row or mask kernel ran: {row}")
     return out
 
 
@@ -993,7 +1197,7 @@ def _launch_counted():
     from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
     return (*build_kernel.KERNELS, gate_kernel.gate_words, snv_kernel.snv_cand_words,
-            snv_kernel.snv_site_rows)
+            snv_kernel.snv_site_rows, snv_kernel.polish_site_rows, snv_kernel.polish_cand_masks)
 
 
 def kernel_launches() -> dict:
@@ -1459,6 +1663,112 @@ def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
             "differing_rows": diff, "path_differing_rows": path_diff, "max_abs_err": err}
 
 
+def covered_bytes(heads, widths, size: int) -> int:
+    """Distinct bytes of [h, h + w) over the heads and widths (tensors)."""
+    import torch
+
+    marks = torch.zeros(size + 1, dtype=torch.int32, device=heads.device)
+    marks.index_add_(0, heads, torch.ones_like(heads, dtype=torch.int32))
+    marks.index_add_(0, torch.clamp(heads + widths, max=size),
+                     -torch.ones_like(heads, dtype=torch.int32))
+    return int((torch.cumsum(marks, 0)[:size] > 0).sum())
+
+
+def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int) -> dict:
+    """The polish kernels at the shapes the main path gives them, on the
+    30 Mbp contig: the site-row kernel on its first 2^22-head chunk's gates
+    (one launch a chunk on the path), the mask kernel on all its gates (one
+    launch a contig on the native path).  Each against its plain version,
+    with the path's own results (flag.iter_polish_site_chunks,
+    flag.polish_candidate_masks) held to it too; then ms (CUDA events, L2
+    flushed), the plain version's ms, the bytes bound (the gate list, the
+    output, every distinct byte read, the filter sectors probed once), the
+    probe floor (as many random probes from as many threads, the kernel's
+    loads in flight) and a torch.take gather of as many words."""
+    import torch
+
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+
+    dev = torch.device("cuda")
+    df = bloom.DeviceFilter.from_host(host_bf, dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
+    k = df.k
+    n = len(seq) - k + 1
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: len(seq)] = torch.from_numpy(seq.copy())
+    seq_dev = buf.to(dev)
+    out = {"layout": df.layout, "heads": n, "jump": jump}
+
+    # site rows: the first chunk's gates
+    m = min(flag.DEFAULT_CHUNK, n)
+    gates = flag.positions_on_device(gate_kernel.gate_words(seq_dev, m, df))
+    _, path_gates, path_rows = next(flag.iter_polish_site_chunks(seq, df, jump))
+    got = snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump)
+    want = snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump)
+    diff = int((got != want).any(1).sum())
+    path_diff = int(not np.array_equal(path_gates, gates.cpu().numpy())) or int(
+        (torch.from_numpy(path_rows).to(dev) != want).any(1).sum())
+    err = int((got.long() - want.long()).abs().max())
+    if diff or path_diff or err:
+        raise AssertionError(f"polish site kernel differs from plain at the chunk shape: "
+                             f"{diff} rows, {path_diff} of the path's own")
+    g = int(gates.numel())
+    starts = gates[snv_kernel.cluster_starts(gates)]
+    sectors, valid, probes = snv_site_probed(seq_dev, n, starts, df, jump)
+    valid_starts = starts[want[snv_kernel.cluster_starts(gates), 0] & 1 == 1]
+    read = covered_bytes(torch.cat([gates, valid_starts]),
+                         torch.cat([torch.full_like(gates, k), torch.full_like(valid_starts, 2 * k)]),
+                         len(seq))
+    nbytes = 8 * g + 6 * g + read + 32 * sectors
+    floor_ms, take_ms = yardsticks(df.table, probes, 32 * max(valid, 1), snv_kernel.SITE_BATCH,
+                                   flush)
+    ms = time_cuda(lambda: snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump), 20, flush)
+    plain_ms = time_cuda(lambda: snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump),
+                         1, flush)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out["site_rows"] = {
+        "chunk_heads": m, "gates": g, "cluster_starts": int(starts.numel()), "valid_rows": valid,
+        "exact_gates": int((want[:, 0] & 32 != 0).sum()), "probes": probes, "sectors": sectors,
+        "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
+        "ms_over_floor": ms / floor_ms, "differing_rows": diff, "path_differing_rows": path_diff,
+        "max_abs_err": err}
+
+    # candidate masks: every gate of the contig
+    host_gates = flag.flag_contig_gates(seq, df)
+    gates = torch.from_numpy(host_gates).to(dev)
+    path_masks = flag.polish_candidate_masks(seq, df, host_gates)
+    got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
+    want = snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df)
+    diff = int((got != want).sum())
+    path_diff = int((torch.from_numpy(path_masks).to(dev) != want).sum())
+    err = int((got.long() - want.long()).abs().max())
+    if diff or path_diff or err:
+        raise AssertionError(f"mask kernel differs from plain at the contig shape: {diff} masks, "
+                             f"{path_diff} of the path's own")
+    g = int(gates.numel())
+    clean, hashes = snv_kernel.mask_hashes(seq_dev, n, gates, k)
+    secs, probes = probe_cost(df, torch.cat(hashes))
+    sectors = int(torch.unique(torch.cat(secs)).numel())
+    nbytes = 8 * g + g + covered_bytes(gates, torch.full_like(gates, k), len(seq)) + 32 * sectors
+    floor_ms, take_ms = yardsticks(df.table, probes, g, snv_kernel.MASK_BATCH, flush)
+    ms = time_cuda(lambda: snv_kernel.polish_cand_masks(seq_dev, n, gates, df), 20, flush)
+    plain_ms = time_cuda(lambda: snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df), 1,
+                         flush)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out["cand_masks"] = {
+        "gates": g, "informative": int(clean.sum()), "probes": probes, "sectors": sectors,
+        "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
+        "ms_over_floor": ms / floor_ms, "differing_masks": diff, "path_differing_masks": path_diff,
+        "max_abs_err": err}
+    del df, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_numbers(power: str) -> dict:
     """The gate pass at the main path's chunk shape (2^22 heads, k=25)
     with the filters of a 50 Mbp assembly (256 MiB blocked), for the
@@ -1616,6 +1926,36 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "ntedit_tpu_torch/csrc/snv_kernel.cu",
             "replaces": replaces,
+            "launches": launches,
+            "matches_plain": cases_diff + sum(r[diff_key] for r in parts.values()) == 0,
+            "max_abs_err": one["max_abs_err"],
+            "ms": one["ms"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "take_ms": one["take_ms"],
+            "floor_ms": one["floor_ms"],
+            "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
+                                                         "plain_ms")}
+                        for layout, r in parts.items()},
+        })
+    # the polish kernels: the site rows at the chunk shape of main_blocked's
+    # and main_plain's rows-on runs, the masks at the contig shape of the
+    # native-engine run, whose launches they take
+    for name, key, line, launches, cases_diff, diff_key in (
+            ("polish_site_rows", "site_rows", 605,
+             main_rows[0]["site_rows"]["site_row_launches"],
+             kernel["polish_site_differing_rows"], "differing_rows"),
+            ("polish_cand_masks", "cand_masks", 844, main_rows[0]["native"]["mask_launches"],
+             kernel["mask_differing"], "differing_masks")):
+        parts = {r["polish_kernels"]["layout"]: r["polish_kernels"][key] for r in main_rows[:2]}
+        one = parts["blocked"]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ntedit_tpu_torch/csrc/snv_kernel.cu",
+            "replaces": f"ntedit_tpu/engine/flag.py:{line}",
             "launches": launches,
             "matches_plain": cases_diff + sum(r[diff_key] for r in parts.values()) == 0,
             "max_abs_err": one["max_abs_err"],

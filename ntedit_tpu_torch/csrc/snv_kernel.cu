@@ -1,4 +1,5 @@
-// SNV kernels: the device side of SNV mode (-s 1) on an H100.
+// SNV and polish site kernels: the device side of SNV mode (-s 1) and of
+// polish mode's optional probe results, on an H100.
 //
 // In SNV mode every head enters the engine's fix path, but a head can only
 // yield a record or an edit when some alternate base's k-mer, the window
@@ -18,7 +19,7 @@
 // packed 32 heads per little-endian uint32.  valid and has_iupac are the
 // gate kernel's: every byte accepted; some byte accepted but not ACGTacgt.
 //
-// snv_site_rows_kernel replaces _snv_site_data_from_codes and the row
+// site_rows_kernel<L, false> replaces _snv_site_data_from_codes and the row
 // validity of its caller snv_site_data.  For every candidate head h it
 // writes the six bytes the host engine consumes instead of probing
 // (native/repair.cpp, fix_site):
@@ -34,14 +35,41 @@
 // byte of [h, h + 2k), all that those windows read, is ACGTacgt; an invalid
 // row is six zeros and the engine probes live.
 //
-// Bound.  Both are bound as the gate kernel is: by the rate at which the
+// site_rows_kernel<L, true> replaces the polish form of that program,
+// _polish_site_data_from_codes, and the row assembly of its caller
+// iter_polish_site_chunks.  It takes a chunk's sorted gate heads and writes
+// one row per gate, so the rows go back parallel to the gates:
+//
+//   row[0]   bit 5 = "device-exact gate": the window [h, h + k) holds no
+//            accepted IUPAC byte (so the gate is the filter's own verdict,
+//            not a forced one) and the engine may skip its re-probe;
+//            bits 0-4 as above, at a cluster start with a valid row
+//   row[1]   check_missing = strides - check_there: the absent stride
+//            windows, the engine's attempt gate
+//   row[2+c] the verify counts as above
+//
+// A cluster start is a gate whose predecessor in the list is not h - 1 (the
+// list's first gate included: a row is exact, so an extra one is safe).
+// Later gates of a cluster are re-evaluated against edited content by the
+// engine and carry bit 5 alone.
+//
+// cand_masks_kernel replaces _polish_cand_planes_from_codes with its
+// gather _gather_cand_masks.  For every gate head h (int64) it writes one
+// byte: bit c = contains(window at h with its last base set to "ACGT"[c]),
+// all four c, the draft's own base included; 0xFF when [h, h + k) holds a
+// byte that is not ACGTacgt (no information: the engine probes live).  The
+// XLA program computed four bit planes over every head and gathered at the
+// gates; the kernel computes at the gates only.
+//
+// Bound.  All are bound as the gate kernel is: by the rate at which the
 // DRAM serves random 32-byte sectors of a filter far larger than the L2
 // (about 30 G probes/s, PERF.md), not by bytes per second and not by the
 // hashing.  The candidate pass makes three probes per live head (blocked;
 // plain: up to hash_num each, stopping at the first clear bit), beside
 // 1 B of ASCII read and 1/8 B written per head.  The site pass makes about
-// 4 + 5 ceil(k / jump) probes per candidate, on a few thousand candidates
-// per million heads: its work is small, and what it saves is on the host.
+// 4 + 5 ceil(k / jump) probes per row, on a few thousand candidates or
+// cluster starts per million heads: its work is small, and what it saves is
+// on the host.  The mask pass makes four probes per gate.
 //
 // Design.  The candidate kernel has the gate kernel's shape (nthash.cuh):
 // one thread owns 32 consecutive heads and writes their word, a block of
@@ -52,17 +80,24 @@
 // probed four and masked one) and sends the probes of one or two heads
 // together as predicated loads.
 //
-// The site kernel gives one warp to each candidate.  Its work items are the
-// head itself (the four pre-check probes) and the ceil(k / jump) stride
-// windows (five probes each: pristine and four alternates, one of which
-// repeats the pristine word; one probe past the site); lane l takes
+// The site kernel gives one warp to each head of its list.  Its work items
+// are the head itself (the four pre-check probes) and the ceil(k / jump)
+// stride windows (five probes each: pristine and four alternates, one of
+// which repeats the pristine word; one probe past the site); lane l takes
 // items l, l + 32, ...  A lane hashes its window directly from the ASCII in
-// global memory (k steps; the 2k bytes of a candidate are shared by its
-// lanes through the L1), derives the alternates' hashes by XOR with the
-// rotated seed difference (srol is a bit permutation, so XOR-linear), and
-// sends its five probes together.  The counts meet in a shuffle reduction
-// and lane 0 writes the row.  There are no caps and no overflow path: the
-// candidate list is as long as it is.  Every index is 64-bit.
+// global memory (k steps; the 2k bytes of a head are shared by its lanes
+// through the L1), derives the alternates' hashes by XOR with the rotated
+// seed difference (srol is a bit permutation, so XOR-linear), and sends its
+// five probes together.  The counts meet in a shuffle reduction and lane 0
+// writes the row.  In the polish form most gates are no cluster start: their
+// warp reads k bytes for bit 5 and leaves.
+//
+// The mask kernel gives one thread to each gate: it hashes the window from
+// the ASCII (gates cluster, so neighbouring threads read neighbouring bytes
+// through the L1) and sends its four probes together.
+//
+// There are no caps and no overflow path: a list is as long as it is.
+// Every index is 64-bit, grids are sized in 64 bits and checked.
 
 #include "nthash.cuh"
 
@@ -78,7 +113,8 @@ using namespace nth;
 constexpr int kSnvHeadsBlocked = 2;
 constexpr int kSnvHeadsPlain = 1;
 constexpr int kAlts = 3;                    // alternates probed per head
-constexpr int kSiteThreads = 128;           // site kernel: 4 warps, one candidate each
+constexpr int kSiteThreads = 128;           // site kernel: 4 warps, one head each
+constexpr int kMaskProbes = 4;              // mask kernel: the four bases at the site
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 template <int L>
@@ -160,21 +196,33 @@ snv_cand_words_kernel(const uint8_t* __restrict__ seq, uint64_t n, Filter f,
 // code of "ACGT"[c]: A 0, C 1, G 3, T 2
 __device__ __forceinline__ unsigned code_of_base(int c) { return c == 2 ? 3u : (c == 3 ? 2u : (unsigned)c); }
 
-template <int L>
+template <int L, bool Polish>
 __global__ void __launch_bounds__(kSiteThreads)
-snv_site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ cand,
-                     uint64_t n_cand, Filter f, int jump, uint8_t* __restrict__ rows)
+site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ heads,
+                 uint64_t n_heads, Filter f, int jump, uint8_t* __restrict__ rows)
 {
 	const uint64_t g = ((uint64_t)blockIdx.x * kSiteThreads + threadIdx.x) >> 5;
 	const int lane = threadIdx.x & 31;
-	if (g >= n_cand)
+	if (g >= n_heads)
 		return;  // whole warps leave together
 	const int k = f.k;
-	const int64_t h = cand[g];
+	const int64_t h = heads[g];
 	uint8_t* row = rows + 6 * g;
 
-	// valid: the scan of k windows past h fits below n, over ACGTacgt only
+	// polish: bit 5 when [h, h + k) holds ACGTacgt only (a gate's window
+	// holds no unaccepted byte, so this is "no accepted IUPAC byte")
+	uint32_t exact = 0;
+	if (Polish && h >= 0 && (uint64_t)h < n) {
+		int other = 0;
+		for (int i = lane; i < k; i += 32)
+			other |= byte_class(seq[h + i]) != 0;
+		exact = __any_sync(kFullWarp, other) ? 0u : 32u;
+	}
+	// valid: the scan of k windows past h fits below n, over ACGTacgt only;
+	// polish: and h starts a cluster
 	bool ok = h >= 0 && (uint64_t)h + (uint64_t)k + 1 <= n;
+	if (Polish)
+		ok = ok && (g == 0 || heads[g - 1] != h - 1);
 	if (ok) {
 		int bad = 0;
 		for (int i = lane; i < 2 * k; i += 32)
@@ -183,7 +231,7 @@ snv_site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t*
 	}
 	if (!ok) {
 		if (lane < 6)
-			row[lane] = 0;
+			row[lane] = lane == 0 ? (uint8_t)exact : 0;
 		return;
 	}
 
@@ -237,12 +285,51 @@ snv_site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t*
 			ver[c] += __shfl_xor_sync(kFullWarp, ver[c], d);
 	}
 	if (lane == 0) {
-		row[0] = (uint8_t)(1u | (pre << 1));
-		row[1] = (uint8_t)(there < 255 ? there : 255);
+		const uint32_t second = Polish ? (uint32_t)strides - there : there;
+		row[0] = (uint8_t)(exact | 1u | (pre << 1));
+		row[1] = (uint8_t)(second < 255 ? second : 255);
 #pragma unroll
 		for (int c = 0; c < 4; ++c)
 			row[2 + c] = (uint8_t)(ver[c] < 255 ? ver[c] : 255);
 	}
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+cand_masks_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ gates,
+                  uint64_t n_gates, Filter f, uint8_t* __restrict__ masks)
+{
+	const uint64_t g = (uint64_t)blockIdx.x * kThreads + threadIdx.x;
+	if (g >= n_gates)
+		return;
+	const int k = f.k;
+	const int64_t h = gates[g];
+	bool ok = h >= 0 && (uint64_t)h < n;
+	uint64_t fh = 0, rh = 0;
+	if (ok) {
+		const uint8_t* p = seq + h;
+		for (int i = 0; i < k; ++i) {
+			const unsigned c = p[i];
+			ok = ok && byte_class(c) == 0;
+			fh = srol1(fh) ^ fwd_seed(code_of(c));
+			rh = srol1(rh) ^ rev_seed(code_of(p[k - 1 - i]));
+		}
+	}
+	if (!ok) {
+		masks[g] = 0xFF;
+		return;
+	}
+	// changelast: take the last base's seeds out, put each base's in
+	const unsigned cd = code_of(seq[h + k - 1]);
+	const uint64_t fx = fh ^ fwd_seed(cd), rx = rh ^ srol(rev_seed(cd), k - 1);
+	uint64_t can[kMaskProbes];
+#pragma unroll
+	for (int c = 0; c < kMaskProbes; ++c) {
+		const unsigned cb = code_of_base(c);
+		const uint64_t fb = fx ^ fwd_seed(cb), rb = rx ^ srol(rev_seed(cb), k - 1);
+		can[c] = fb < rb ? fb : rb;
+	}
+	masks[g] = (uint8_t)(0xFu & ~probe_batch<L, kMaskProbes>(can, 0xFu, f));
 }
 
 bool filter_ok(int k, int hash_num, uint64_t modulus)
@@ -281,38 +368,73 @@ int nts_cand_words(const void* seq, uint64_t n, int k, const void* table, uint64
 	return (int)cudaGetLastError();
 }
 
-// Site rows of the ``n_cand`` candidate heads ``cand`` (int64) of a contig
+// Site rows of the ``n_heads`` heads ``heads`` (sorted int64) of a contig
 // of ``n`` heads, whose n + k - 1 bytes lie at ``seq``; ``rows`` holds
-// 6 * n_cand bytes.  ``jump`` >= 1.
-int nts_site_rows(const void* seq, uint64_t n, int k, const void* cand, uint64_t n_cand,
+// 6 * n_heads bytes.  ``polish`` 0: SNV candidates; 1: a chunk's gates,
+// one row each (the polish form).  ``jump`` >= 1.
+int nts_site_rows(const void* seq, uint64_t n, int k, const void* heads, uint64_t n_heads,
                   const void* table, uint64_t modulus, uint64_t magic, int wbits, int layout,
-                  int hash_num, int jump, void* rows, void* stream)
+                  int hash_num, int jump, int polish, void* rows, void* stream)
 {
-	if (n_cand == 0)
+	if (n_heads == 0)
 		return 0;
 	if (!filter_ok(k, hash_num, modulus) || jump < 1)
 		return (int)cudaErrorInvalidValue;
 	const Filter f{table, modulus, magic, wbits, hash_num, k, 1};
 	const auto* s = static_cast<const uint8_t*>(seq);
-	const auto* c = static_cast<const int64_t*>(cand);
+	const auto* c = static_cast<const int64_t*>(heads);
 	auto* r = static_cast<uint8_t*>(rows);
 	auto st = static_cast<cudaStream_t>(stream);
-	const uint64_t blocks = (n_cand * 32 + kSiteThreads - 1) / kSiteThreads;
+	if (n_heads > (0xFFFFFFFFFFFFFFFFULL - kSiteThreads) / 32)
+		return (int)cudaErrorInvalidValue;
+	const uint64_t blocks = (n_heads * 32 + kSiteThreads - 1) / kSiteThreads;
+	if (blocks > 0x7FFFFFFFULL)
+		return (int)cudaErrorInvalidValue;
+	const unsigned b = (unsigned)blocks;
+	if (layout == kPlain && !polish)
+		site_rows_kernel<kPlain, false><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	else if (layout == kBlocked && !polish)
+		site_rows_kernel<kBlocked, false><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	else if (layout == kPlain)
+		site_rows_kernel<kPlain, true><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	else if (layout == kBlocked)
+		site_rows_kernel<kBlocked, true><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	else
+		return (int)cudaErrorInvalidValue;
+	return (int)cudaGetLastError();
+}
+
+// Candidate masks of the ``n_gates`` gate heads ``gates`` (int64) of a
+// contig of ``n`` heads, whose n + k - 1 bytes lie at ``seq``; ``masks``
+// holds n_gates bytes.
+int nts_cand_masks(const void* seq, uint64_t n, int k, const void* gates, uint64_t n_gates,
+                   const void* table, uint64_t modulus, uint64_t magic, int wbits, int layout,
+                   int hash_num, void* masks, void* stream)
+{
+	if (n_gates == 0)
+		return 0;
+	if (!filter_ok(k, hash_num, modulus))
+		return (int)cudaErrorInvalidValue;
+	const Filter f{table, modulus, magic, wbits, hash_num, k, 1};
+	const auto* s = static_cast<const uint8_t*>(seq);
+	const auto* g = static_cast<const int64_t*>(gates);
+	auto* m = static_cast<uint8_t*>(masks);
+	auto st = static_cast<cudaStream_t>(stream);
+	const uint64_t blocks = n_gates / kThreads + (n_gates % kThreads != 0);
 	if (blocks > 0x7FFFFFFFULL)
 		return (int)cudaErrorInvalidValue;
 	if (layout == kPlain)
-		snv_site_rows_kernel<kPlain><<<(unsigned)blocks, kSiteThreads, 0, st>>>(
-		    s, n, c, n_cand, f, jump, r);
+		cand_masks_kernel<kPlain><<<(unsigned)blocks, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
 	else if (layout == kBlocked)
-		snv_site_rows_kernel<kBlocked><<<(unsigned)blocks, kSiteThreads, 0, st>>>(
-		    s, n, c, n_cand, f, jump, r);
+		cand_masks_kernel<kBlocked><<<(unsigned)blocks, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
 	else
 		return (int)cudaErrorInvalidValue;
 	return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM: which = 0, 1 for the candidate kernel's plain and
-// blocked forms, 2, 3 for the site kernel's.  Negative on error.
+// blocked forms, 2, 3 for the site kernel's, 4, 5 for its polish form's,
+// 6, 7 for the mask kernel's.  Negative on error.
 int nts_occupancy(int which)
 {
 	int blocks = 0;
@@ -320,8 +442,12 @@ int nts_occupancy(int which)
 	switch (which) {
 	case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_words_kernel<kPlain>, kThreads, 0); break;
 	case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_words_kernel<kBlocked>, kThreads, 0); break;
-	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_site_rows_kernel<kPlain>, kSiteThreads, 0); break;
-	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_site_rows_kernel<kBlocked>, kSiteThreads, 0); break;
+	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kPlain, false>, kSiteThreads, 0); break;
+	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked, false>, kSiteThreads, 0); break;
+	case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kPlain, true>, kSiteThreads, 0); break;
+	case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked, true>, kSiteThreads, 0); break;
+	case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kPlain>, kThreads, 0); break;
+	case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kBlocked>, kThreads, 0); break;
 	}
 	return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -332,6 +458,7 @@ const char* nts_error_string(int code)
 }
 
 int nts_cand_batch(int layout) { return kAlts * (layout == kPlain ? kSnvHeadsPlain : kSnvHeadsBlocked); }
+int nts_mask_batch() { return kMaskProbes; }
 int nts_tile_heads() { return kTile; }
 int nts_halo_bytes() { return kHalo; }
 

@@ -12,6 +12,11 @@ In SNV mode every head is gated, so the device computes which heads can
 matter instead (ops/snv_kernel.py): the candidate heads, where some
 alternate base's k-mer is in the filter, and optionally each candidate's
 site row, the probe results the host engine would otherwise gather itself.
+
+Polish mode has two such optional passes (ops/snv_kernel.py): site rows
+parallel to each chunk's gates (iter_polish_site_chunks), and the
+substitution-candidate masks of a whole contig's gates
+(polish_candidate_masks).
 """
 
 from __future__ import annotations
@@ -59,6 +64,78 @@ def _staged(seq: np.ndarray, size: int, pin: bool) -> torch.Tensor:
     return buf
 
 
+def _iter_chunks(seq: np.ndarray, df, snv: bool, min_threshold: int, chunk: int,
+                 stream, jump: Optional[int]) -> Iterator[tuple]:
+    """iter_gate_chunks, and with ``jump`` the polish rows of each chunk's
+    gates as a third element."""
+    k = df.k
+    if k > gate_kernel.MAX_K:
+        raise ValueError(f"the gate pass supports k <= {gate_kernel.MAX_K}, got k={k}")
+    L = len(seq)
+    n = L - k + 1
+    if n <= 0:
+        return
+    chunk = _effective_chunk(n, chunk)
+    starts = range(0, n, chunk)
+    size = gate_kernel.padded_len(n)
+    if df.device.type != "cuda":
+        host = _staged(seq, size, pin=False).to(df.device)
+        for start in starts:
+            m = min(chunk, n - start)
+            words = gate_kernel.gate_words(host[start:], m, df, snv, min_threshold)
+            gates = packed_to_positions(words.cpu().numpy().view(np.uint32), m) + start
+            if jump is None:
+                yield start + m, gates
+            else:
+                rows = snv_kernel.polish_site_rows(host, n, torch.from_numpy(gates), df, jump)
+                yield start + m, gates, rows.numpy()
+        return
+    if stream is None:
+        stream = torch.cuda.Stream(df.device)
+    staged = _staged(seq, size, pin=True)
+    words_host = torch.empty(-(-n // 32), dtype=torch.int32, pin_memory=True)
+    with torch.cuda.stream(stream):
+        dev_seq = torch.empty(size, dtype=torch.uint8, device=df.device)
+        dev_seq.copy_(staged, non_blocking=True)
+        launched = [(start, min(chunk, n - start),
+                     gate_kernel.gate_words(dev_seq[start:], min(chunk, n - start), df, snv,
+                                            min_threshold))
+                    for start in starts]
+
+    def drain(start, m, words):
+        """Queue a chunk's words (and its rows) back to the host; its event
+        marks them there."""
+        with torch.cuda.stream(stream):
+            dst = words_host[start // 32 : start // 32 + words.numel()]
+            dst.copy_(words, non_blocking=True)
+            rows_host = rows = None
+            if jump is not None:
+                # the compaction waits for the stream so far; the rows of
+                # this chunk's gates come back beside its words
+                rows = snv_kernel.polish_site_rows(
+                    dev_seq, n, positions_on_device(words) + start, df, jump)
+                rows_host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=True)
+                rows_host.copy_(rows, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return dst, rows_host, rows, done
+
+    # without rows every chunk drains up front; with rows the next chunk's
+    # compaction and rows are queued before a chunk is yielded, so the card
+    # computes them while the host repairs this one
+    pending = [drain(*c) for c in (launched if jump is None else launched[:1])]
+    for i, (start, m, _words) in enumerate(launched):
+        if len(pending) <= i + 1 < len(launched):
+            pending.append(drain(*launched[i + 1]))
+        dst, rows_host, _rows, done = pending[i]
+        done.synchronize()
+        gates = packed_to_positions(dst.numpy().view(np.uint32), m) + start
+        if jump is None:
+            yield start + m, gates
+        else:
+            yield start + m, gates, rows_host.numpy()
+
+
 def iter_gate_chunks(
     seq: np.ndarray,
     df,
@@ -76,43 +153,30 @@ def iter_gate_chunks(
     copied without blocking into a pinned host buffer with one event per
     chunk; the chunks then drain in order.  On the CPU each chunk runs the
     plain version when it is consumed."""
-    k = df.k
-    if k > gate_kernel.MAX_K:
-        raise ValueError(f"the gate pass supports k <= {gate_kernel.MAX_K}, got k={k}")
-    L = len(seq)
-    n = L - k + 1
-    if n <= 0:
-        return
-    chunk = _effective_chunk(n, chunk)
-    starts = range(0, n, chunk)
-    size = gate_kernel.padded_len(n)
-    if df.device.type != "cuda":
-        host = _staged(seq, size, pin=False).to(df.device)
-        for start in starts:
-            m = min(chunk, n - start)
-            words = gate_kernel.gate_words(host[start:], m, df, snv, min_threshold)
-            yield start + m, packed_to_positions(words.cpu().numpy().view(np.uint32), m) + start
+    return _iter_chunks(seq, df, snv, min_threshold, chunk, stream, None)
 
-        return
-    if stream is None:
-        stream = torch.cuda.Stream(df.device)
-    staged = _staged(seq, size, pin=True)
-    words_host = torch.empty(-(-n // 32), dtype=torch.int32, pin_memory=True)
-    pending = []
-    with torch.cuda.stream(stream):
-        dev_seq = torch.empty(size, dtype=torch.uint8, device=df.device)
-        dev_seq.copy_(staged, non_blocking=True)
-        for start in starts:
-            m = min(chunk, n - start)
-            words = gate_kernel.gate_words(dev_seq[start:], m, df, snv, min_threshold)
-            dst = words_host[start // 32 : start // 32 + words.numel()]
-            dst.copy_(words, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-            pending.append((start, m, dst, words, done))
-    for start, m, dst, _words, done in pending:
-        done.synchronize()
-        yield start + m, packed_to_positions(dst.numpy().view(np.uint32), m) + start
+
+def iter_polish_site_chunks(
+    seq: np.ndarray,
+    df,
+    jump: int,
+    chunk: int = DEFAULT_CHUNK,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> Iterator[tuple]:
+    """The polish gate stream with per-gate rows: yields (frontier, gates,
+    rows), the gates of iter_gate_chunks (polish mode) and uint8
+    [len(gates), 6] rows parallel to them (ops/snv_kernel.py
+    polish_site_rows): flags bit 5 on every gate whose window holds no
+    accepted IUPAC byte, and at cluster starts with a valid row its flags
+    bits 0-4, check_missing and verify counts, which the engine consumes at
+    pristine windows instead of probing.  Needs a blocked or plain filter.
+
+    On CUDA every chunk's gate kernel is launched up front; then chunk by
+    chunk its gates are compacted on the card (a synchronisation), the row
+    kernel runs on them, and the rows are copied back beside the gate
+    words.  Chunk i+1's compaction and rows are queued before chunk i is
+    yielded, so the card computes them while the host repairs chunk i."""
+    return _iter_chunks(seq, df, False, 1, chunk, stream, jump)
 
 
 def flag_contig_gates(
@@ -178,6 +242,31 @@ def snv_candidate_positions(
     with _on_stream(df, stream):
         _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk)
         return cand.cpu().numpy()
+
+
+def polish_candidate_masks(
+    seq: np.ndarray,
+    df,
+    gates: np.ndarray,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> np.ndarray:
+    """uint8 masks parallel to the gate heads ``gates`` of one contig
+    (ops/snv_kernel.py polish_cand_masks): bit c = the window's k-mer with
+    its last base set to "ACGT"[c] is in the filter; 0xFF = the window holds
+    a byte that is not ACGT, probe live.  One upload of the contig and of
+    the gates (int64: no limit on the contig's length), one kernel, one
+    byte per gate back.  Needs a blocked or plain filter."""
+    gates = np.ascontiguousarray(gates, dtype=np.int64)
+    n = len(seq) - df.k + 1
+    if n <= 0 or not len(gates):
+        return np.zeros(len(gates), dtype=np.uint8)
+    cuda = df.device.type == "cuda"
+    with _on_stream(df, stream):
+        staged = _staged(seq, len(seq), pin=cuda)
+        dev_seq = torch.empty(len(seq), dtype=torch.uint8, device=df.device)
+        dev_seq.copy_(staged, non_blocking=cuda)
+        dev_gates = torch.from_numpy(gates).to(df.device)
+        return snv_kernel.polish_cand_masks(dev_seq, n, dev_gates, df).cpu().numpy()
 
 
 def snv_site_data(

@@ -81,8 +81,8 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
         ]
         # the same call with two more arrays parallel to the gates:
-        # gate_cand (uint8 per gate, not passed by the port yet) and
-        # site_rows (uint8[6] per gate, ops/snv_kernel.py)
+        # gate_cand (uint8 per gate) and site_rows (uint8[6] per gate),
+        # both from ops/snv_kernel.py
         lib.ntr_polish_contig_v2.restype = ctypes.c_int64
         lib.ntr_polish_contig_v2.argtypes = (
             lib.ntr_polish_contig.argtypes + [ctypes.c_void_p, ctypes.c_void_p])
@@ -130,12 +130,27 @@ def _params_of(cfg: EngineConfig) -> _NtrParams:
     )
 
 
+def _parallel(arr, gates, width: int, what: str):
+    """``arr`` as a contiguous uint8 array parallel to ``gates`` (``width``
+    bytes per gate, 0 for one byte), or None; raises when it is not."""
+    if arr is None:
+        return None
+    n_gates = 0 if gates is None else len(gates)
+    want = (n_gates, width) if width else (n_gates,)
+    if gates is None or arr.shape != want:
+        raise ValueError(f"{what} {arr.shape} are not parallel to {n_gates} gates")
+    return np.ascontiguousarray(arr, dtype=np.uint8)
+
+
 def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
-             rep_struct, params, site_rows=None):
+             rep_struct, params, gate_cand=None, site_rows=None):
     """One ntr_polish_contig call with capacity retries.
 
-    ``site_rows``: uint8 [n_gates, 6] rows parallel to ``gates`` that the
-    engine consumes instead of probing (ops/snv_kernel.py), or None.
+    ``gate_cand``: uint8 [n_gates] candidate masks parallel to ``gates``
+    (flag.polish_candidate_masks), or None.  ``site_rows``: uint8
+    [n_gates, 6] rows parallel to ``gates`` (flag.snv_site_data,
+    flag.iter_polish_site_chunks), or None.  The engine consumes both
+    instead of probing, with the same output.
 
     ``contig`` is modified in place (it may be a view into a shared
     whole-contig buffer); every retry restores it from ``pristine`` first —
@@ -149,12 +164,12 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
         n_gates = gates.size
     else:
         gates_ptr, n_gates = None, 0
-    rows_ptr = None
-    if site_rows is not None:
-        if gates is None or site_rows.shape != (n_gates, 6):
-            raise ValueError(f"site rows {site_rows.shape} are not parallel to {n_gates} gates")
-        site_rows = np.ascontiguousarray(site_rows, dtype=np.uint8)
-        rows_ptr = site_rows.ctypes.data_as(ctypes.c_void_p).value
+    gate_cand = _parallel(gate_cand, gates, 0, "candidate masks")
+    site_rows = _parallel(site_rows, gates, 6, "site rows")
+    extra = None
+    if gate_cand is not None or site_rows is not None:
+        extra = [None if a is None else a.ctypes.data_as(ctypes.c_void_p).value
+                 for a in (gate_cand, site_rows)]
     subs_cap = max(4096, L // 64)
     nodes_cap = max(4096, L // 64)
     first = True
@@ -177,8 +192,8 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
             nodes_buf.ctypes.data_as(ctypes.c_void_p).value, nodes_cap,
             ctypes.byref(n_nodes),
         ]
-        if rows_ptr is not None:
-            rc = lib.ntr_polish_contig_v2(*args, None, rows_ptr)
+        if extra is not None:
+            rc = lib.ntr_polish_contig_v2(*args, *extra)
         else:
             rc = lib.ntr_polish_contig(*args)
         if rc == -2:
@@ -238,18 +253,19 @@ def polish_contig_native(
     seq: bytes | np.ndarray,
     gate_hint: Optional[np.ndarray] = None,
     site_rows: Optional[np.ndarray] = None,
+    gate_cand: Optional[np.ndarray] = None,
 ) -> Optional[ContigResult]:
     """Run the native engine on one whole contig; with no ``gate_hint`` it
-    scans every head (the full sequential scan).  ``site_rows`` are rows
-    parallel to ``gate_hint`` (see _run_raw).  Returns None when the
-    engine reports an error."""
+    scans every head (the full sequential scan).  ``site_rows`` and
+    ``gate_cand`` are parallel to ``gate_hint`` (see _run_raw).  Returns
+    None when the engine reports an error."""
     lib = get_lib()
     bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
     params = _params_of(cfg.validate())
     seq_bytes = bytes(seq)
     contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
     out = _run_raw(lib, contig, seq_bytes, gate_hint, bf_struct, rep_struct, params,
-                   site_rows=site_rows)
+                   gate_cand, site_rows=site_rows)
     if out is None:
         return None
     return _result(header, contig, *out)
@@ -276,15 +292,15 @@ def _gap_margin(cfg) -> tuple:
 
 
 def _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin):
-    """Closure running one segment: (lo, hi, abs_gates[, rows]) -> (sb, nb)
-    raw arrays, "overflow" when activity reaches the right margin, or None
-    on engine failure."""
+    """Closure running one segment: (lo, hi, abs_gates[, masks, rows]) ->
+    (sb, nb) raw arrays, "overflow" when activity reaches the right margin,
+    or None on engine failure."""
 
-    def run(lo: int, hi: int, seg_gates_abs: np.ndarray, seg_rows=None):
+    def run(lo: int, hi: int, seg_gates_abs: np.ndarray, seg_cand=None, seg_rows=None):
         view = contig[lo:hi]
         pristine = seq_bytes[lo:hi]
         out = _run_raw(lib, view, pristine, seg_gates_abs - lo, bf_struct,
-                       rep_struct, params, site_rows=seg_rows)
+                       rep_struct, params, seg_cand, site_rows=seg_rows)
         if out is None:
             return None
         sb, nb = out
@@ -370,6 +386,7 @@ def polish_contig_segmented(
     threads: int = 4,
     allow_snv: bool = False,
     site_rows: Optional[np.ndarray] = None,
+    gate_cand: Optional[np.ndarray] = None,
 ) -> Optional[ContigResult]:
     """Parallel exact repair from a complete gate list: independent
     gate-run segments in threads.
@@ -385,7 +402,8 @@ def polish_contig_segmented(
     hints is only sound when the hints are the CANDIDATE set
     (flag.snv_candidate_positions: heads between candidates are provably
     no-ops); the Polisher sets this after checking eligibility, and an SNV
-    run without it raises.  ``site_rows``: rows parallel to ``gates``."""
+    run without it raises.  ``site_rows`` and ``gate_cand``: rows and
+    candidate masks parallel to ``gates`` (see _run_raw)."""
     if cfg.snv and not allow_snv:
         raise ValueError("raw SNV gates every head: there are no quiet gaps to cut at")
     lib = get_lib()
@@ -397,15 +415,15 @@ def polish_contig_segmented(
     gates = np.ascontiguousarray(gates, dtype=np.int64)
     if not len(gates):
         return ContigResult(header, bytearray(seq_bytes), RopeCells(L), [])
-    if site_rows is not None and site_rows.shape != (len(gates), 6):
-        raise ValueError(f"site rows {site_rows.shape} are not parallel to {len(gates)} gates")
+    site_rows = _parallel(site_rows, gates, 6, "site rows")
+    gate_cand = _parallel(gate_cand, gates, 0, "candidate masks")
 
     gap, _ = _gap_margin(cfg)
     contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
     idx_bounds, margin = _bucket_bounds(gates, cfg, n_buckets=4 * threads)
     if len(idx_bounds) == 1 or threads <= 1:
         out = _run_raw(lib, contig, seq_bytes, gates, bf_struct, rep_struct, params,
-                       site_rows=site_rows)
+                       gate_cand, site_rows=site_rows)
         if out is None:
             return None
         return _result(header, contig, *out)
@@ -415,7 +433,9 @@ def polish_contig_segmented(
     for i0, i1 in idx_bounds:
         lo = int(gates[i0])
         hi = int(min(L, gates[i1 - 1] + gap))
-        jobs.append((lo, hi, gates[i0:i1], site_rows[i0:i1] if site_rows is not None else None))
+        jobs.append((lo, hi, gates[i0:i1],
+                     gate_cand[i0:i1] if gate_cand is not None else None,
+                     site_rows[i0:i1] if site_rows is not None else None))
     with ThreadPoolExecutor(max_workers=min(threads, len(jobs))) as ex:
         results = list(ex.map(lambda j: runner(*j), jobs))
     return _finish_segments(
@@ -437,10 +457,13 @@ def polish_contig_pipelined(
     """Segmented repair overlapped with the streaming dense pass.
 
     ``gate_chunks`` yields (frontier, abs_gates) with every head <
-    frontier final (flag.iter_gate_chunks).  Segments whose closing quiet
-    gap is confirmed are submitted to the repair pool immediately, so the
-    host repairs chunk i while the device still computes chunk i+1's
-    gates.  Output is identical to the sequential scan.
+    frontier final (flag.iter_gate_chunks), or (frontier, abs_gates, rows)
+    with uint8 [len(gates), 6] rows parallel to the gates
+    (flag.iter_polish_site_chunks), which travel with their gates into the
+    segments.  Segments whose closing quiet gap is confirmed are submitted
+    to the repair pool immediately, so the host repairs chunk i while the
+    device still computes chunk i+1's gates.  Output is identical to the
+    sequential scan.
 
     ``collect_gates``: optional list the consumed gate arrays are appended
     to, so a caller can reuse the dense pass as a hint if this engine
@@ -461,53 +484,77 @@ def polish_contig_pipelined(
 
     # closed segments accumulate into a bucket; one native call per bucket
     # (few large calls, not thousands of tiny ones) sized so ~2 buckets per
-    # thread stay in flight against typical gate densities
+    # thread stay in flight against typical gate densities.  A bucket is a
+    # run of consecutive closed segments, so it is a slice of the stream.
     bucket_budget = 16384
     gbuf = np.empty(0, dtype=np.int64)  # gates not yet assigned to a segment
-    bucket = []                         # closed gate groups awaiting submit
+    rbuf = None                         # their rows, when the stream has rows
+    bucket = []                         # closed gate runs awaiting submit
+    bucket_rows = []
     bucket_n = 0
     chunks = []                         # all gate arrays (fallback replay)
     bounds = []
     futures = []
     with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
 
+        def add(lo_i: int, hi_i: int):
+            nonlocal bucket_n
+            bucket.append(gbuf[lo_i:hi_i])
+            bucket_rows.append(None if rbuf is None else rbuf[lo_i:hi_i])
+            bucket_n += hi_i - lo_i
+
         def submit_bucket():
-            nonlocal bucket, bucket_n
+            nonlocal bucket, bucket_rows, bucket_n
             if not bucket:
                 return
             bgates = np.concatenate(bucket)
+            brows = None if bucket_rows[0] is None else np.concatenate(bucket_rows)
             lo = int(bgates[0])
             hi = int(min(L, bgates[-1] + gap))
             bounds.append((lo, hi))
-            futures.append(ex.submit(runner, lo, hi, bgates))
+            futures.append(ex.submit(runner, lo, hi, bgates, None, brows))
             bucket = []
+            bucket_rows = []
             bucket_n = 0
 
-        for frontier, g in gate_chunks:
-            chunks.append(np.asarray(g, dtype=np.int64))
+        for item in gate_chunks:
+            frontier, g = item[0], np.asarray(item[1], dtype=np.int64)
+            chunks.append(g)
             if collect_gates is not None:
-                collect_gates.append(chunks[-1])
-            gbuf = np.concatenate([gbuf, chunks[-1]])
+                collect_gates.append(g)
+            gbuf = np.concatenate([gbuf, g])
+            if len(item) > 2:
+                if len(item[2]) != len(g):
+                    raise ValueError(f"{len(item[2])} rows for {len(g)} gates")
+                rbuf = item[2] if rbuf is None else np.concatenate([rbuf, item[2]])
+            elif rbuf is not None:
+                raise ValueError("a chunk without rows in a stream with rows")
             if not len(gbuf):
                 continue
-            # close every group whose trailing quiet gap is confirmed:
-            # the group's last gate is > gap before the frontier AND > gap
-            # before the next group's first gate
-            groups = np.split(gbuf, np.nonzero(np.diff(gbuf) > gap)[0] + 1)
-            closed = list(groups[:-1])
-            last = groups[-1]
-            if len(last) and int(last[-1]) + gap < frontier:
-                closed.append(last)
-                gbuf = np.empty(0, dtype=np.int64)
-            else:
-                gbuf = last
-            for grp in closed:
-                bucket.append(grp)
-                bucket_n += len(grp)
-                if bucket_n >= bucket_budget:
-                    submit_bucket()
+            # the groups of gates closed by a confirmed trailing quiet gap
+            # (> gap before the next group's first gate AND before the
+            # frontier) end at these indices of gbuf
+            ends = np.nonzero(np.diff(gbuf) > gap)[0] + 1
+            if int(gbuf[-1]) + gap < frontier:
+                ends = np.append(ends, len(gbuf))
+            if not len(ends):
+                continue
+            # a bucket is submitted at the first group end that fills it
+            pos = 0
+            while True:
+                i = int(np.searchsorted(ends, pos + bucket_budget - bucket_n))
+                if i == len(ends):
+                    break
+                add(pos, int(ends[i]))
+                submit_bucket()
+                pos = int(ends[i])
+            closed = int(ends[-1])
+            if pos < closed:
+                add(pos, closed)
+            gbuf = gbuf[closed:]
+            rbuf = None if rbuf is None else rbuf[closed:]
         if len(gbuf):
-            bucket.append(gbuf)
+            add(0, len(gbuf))
         submit_bucket()
         results = [f.result() for f in futures]
 

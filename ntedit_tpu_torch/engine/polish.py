@@ -8,11 +8,26 @@ stretches the device proved clean and behaves exactly like the full
 sequential scan elsewhere.  The device computes chunk i+1's gates while
 -t host threads repair chunk i's segments.
 
+Two engines, as in the JAX package:
+
+* ``pipelined`` (the default, also ``auto``): the streaming gate pass
+  (flag.iter_gate_chunks) overlapped with the threaded segment repair
+  (native_repair.polish_contig_pipelined).  With site rows, the stream
+  carries rows parallel to each chunk's gates (flag.iter_polish_site_chunks)
+  that the engine consumes at pristine windows instead of probing.
+* ``native``: the whole contig's gate hint first, then the segmented
+  repair (-t > 1) or the whole-contig engine.  With candidate masks, the
+  device also computes at every gate which of the four bases the window's
+  last position may take (flag.polish_candidate_masks), the engine's first
+  substitution probe.
+
 In SNV mode (-s 1) every head enters the engine's fix path, so the device
 computes the candidate heads instead (ops/snv_kernel.py): the only heads
 where a record or an edit can arise.  They are an exact hint for the
 segmented repair, and the site rows the device computes for them stand in
 for the engine's own probes.
+
+The rows and the masks change no output byte, only where the probes run.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ from ntedit_tpu_torch.engine.config import EngineConfig
 from ntedit_tpu_torch.engine.records import ContigResult
 
 NOT_PORTED = "is not ported to the torch package yet (see ROADMAP.md)"
+ENGINES = ("pipelined", "native")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,13 +68,22 @@ class Polisher:
         cfg: Optional[EngineConfig] = None,
         chunk: int = flag.DEFAULT_CHUNK,
         device=None,
-        site_rows: bool = True,
+        engine: str = "auto",
+        site_rows: Optional[bool] = None,
+        cand_masks: bool = False,
     ):
-        """``site_rows``: in SNV mode, also compute each candidate's site
-        row on the device and hand it to the repair.  The outputs are the
-        same either way; on the card the run with rows measured no slower
-        end to end (PERF.md), so it is the default, and the keyword is the
-        one switch, for tests and chip_smoke.py to run both."""
+        """``engine``: "auto" (= "pipelined"), "pipelined" or "native".
+
+        ``site_rows``: compute site rows on the device and hand them to the
+        repair, in SNV mode (each candidate's) and with the pipelined engine
+        in polish mode (each chunk's gates'); None means on in SNV mode and
+        off in polish mode.  ``cand_masks``: with the native engine in
+        polish mode, compute the candidate masks of the gates.  The outputs
+        are the same either way; both apply only where the JAX package
+        allows them (non-counting filter, no reject filter, -m != 2).  The
+        polish-mode defaults follow the card's timing in turns at 50 Mbp
+        (chip_smoke.py, PERF.md): the engine with rows was no slower in 4
+        rounds of 5 in one run and 0 in another, with masks in 2 and 1."""
         self.device = resolve_device(device)
         if cfg is None:
             cfg = EngineConfig(k=host_bloom.k, hash_num=host_bloom.hash_num)
@@ -67,10 +92,18 @@ class Polisher:
         self.cfg = cfg.validate()
         if self.cfg.verbose:
             raise NotImplementedError(f"verbose tracing (-v 1) {NOT_PORTED}")
+        if engine == "auto":
+            engine = "pipelined"
+        if engine in ("wavefront", "sequential"):
+            raise NotImplementedError(f"the {engine} engine {NOT_PORTED}")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}: one of auto, {', '.join(ENGINES)}")
+        self.engine = engine
         self.bloom = host_bloom
         self.bloomrep = host_bloomrep
         self.chunk = chunk
-        self.site_rows = site_rows
+        self.site_rows = self.cfg.snv if site_rows is None else site_rows
+        self.cand_masks = cand_masks
         self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
 
     def gate_positions(self, seq: np.ndarray) -> np.ndarray:
@@ -88,6 +121,13 @@ class Polisher:
         (masking touches every no-fix position)."""
         return (not self.df.counting and self.bloomrep is None
                 and self.cfg.mode != 2 and not self.cfg.mask)
+
+    def _polish_probes_eligible(self) -> bool:
+        """Polish rows and candidate masks stand in for the engine's own
+        probes only where those probes are plain contains: non-counting
+        filter, no reject filter, mode != 2 (mode 2 bypasses the pre-check
+        probe)."""
+        return not self.df.counting and self.bloomrep is None and self.cfg.mode != 2
 
     def _snv_contig(self, header: str, seq: np.ndarray, stream) -> ContigResult:
         """SNV mode.  Eligible runs: the device's candidates (and their
@@ -117,35 +157,60 @@ class Polisher:
                 f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
         return res
 
+    def _native_contig(self, header: str, seq: np.ndarray, hint: np.ndarray,
+                       stream) -> ContigResult:
+        """Polish mode from a whole gate hint: the candidate masks of its
+        gates when switched on, then the segmented repair (-t > 1) or the
+        whole-contig engine."""
+        masks = None
+        if self.cand_masks and self._polish_probes_eligible() and len(hint):
+            masks = flag.polish_candidate_masks(seq, self.df, hint, stream=stream)
+        res = None
+        if self.cfg.threads > 1:
+            res = native_repair.polish_contig_segmented(
+                self.bloom, self.bloomrep, self.cfg, header, seq, hint,
+                threads=self.cfg.threads, gate_cand=masks)
+        if res is None:
+            res = native_repair.polish_contig_native(
+                self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint,
+                gate_cand=masks)
+        if res is None:
+            # the JAX package falls back to its wavefront engine here
+            raise NotImplementedError(
+                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
+        return res
+
     def polish_contig(self, header: str, seq: np.ndarray) -> ContigResult:
-        """Stream the contig's gates from the device into the threaded
-        repair (polish mode), or its SNV candidates into the segmented
-        repair (SNV mode).  Each call runs its device work on a CUDA stream
-        of its own, so two contigs in flight never share one."""
+        """Polish mode: the pipelined engine streams the contig's gates
+        (with their rows) from the device into the threaded repair; the
+        native engine takes the whole gate hint (and its masks) first.  SNV
+        mode: the candidates into the segmented repair.  Each call runs its
+        device work on a CUDA stream of its own, so two contigs in flight
+        never share one."""
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         if self.cfg.snv:
             return self._snv_contig(header, seq, stream)
+        if self.engine == "native":
+            return self._native_contig(header, seq, self.gate_positions(seq), stream)
         streamed = []
-        chunks = flag.iter_gate_chunks(
-            seq, self.df, snv=False, min_threshold=self.cfg.min_threshold,
-            chunk=self.chunk, stream=stream,
-        )
+        if self.site_rows and self._polish_probes_eligible():
+            chunks = flag.iter_polish_site_chunks(
+                seq, self.df, self.cfg.jump, chunk=self.chunk, stream=stream)
+        else:
+            chunks = flag.iter_gate_chunks(
+                seq, self.df, snv=False, min_threshold=self.cfg.min_threshold,
+                chunk=self.chunk, stream=stream,
+            )
         res = native_repair.polish_contig_pipelined(
             self.bloom, self.bloomrep, self.cfg, header, seq, chunks,
             threads=self.cfg.threads, collect_gates=streamed,
         )
         if res is not None:
             return res
-        # a segment run failed: replay the whole contig through the native
-        # engine with the gates already computed as its hint
+        # a segment run failed: replay the whole contig from the gates
+        # already computed, as the native engine does
         hint = np.concatenate(streamed) if streamed else self.gate_positions(seq)
-        res = native_repair.polish_contig_native(
-            self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint)
-        if res is None:
-            # the JAX package falls back to its wavefront engine here
-            raise NotImplementedError(
-                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
-        return res
+        return self._native_contig(header, seq, hint, stream)
 
     def polish(
         self, contigs: Iterable[Tuple[str, np.ndarray]]

@@ -234,10 +234,7 @@ def test_stage_cache_dry_run_and_force(pipeline_dirs, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["engine", "-r", "x.bf", "-f", "y.fa", "-v", "1"],
-    ["engine", "-r", "x.bf", "-f", "y.fa", "--spill", "on"],
     ["polish", "--draft", "y.fa", "--reads", "r", "-k", "25", "-v"],
-    ["snv", "--reference", "y.fa", "--genome", "g.fa", "-k", "25", "--spill", "on"],
-    ["snv", "--reference", "y.fa", "--reads", "r", "-k", "25", "--spill", "auto"],
 ])
 def test_not_ported_raise(argv):
     from ntedit_tpu_torch import cli

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ntedit_tpu_torch.core import bloom
+from ntedit_tpu_torch.engine import flag
 from ntedit_tpu_torch.engine.polish import Polisher
 from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
@@ -45,7 +46,7 @@ def test_no_jax_or_reference_imports():
 def test_import_leaves_jax_out():
     code = ("import sys; import ntedit_tpu_torch, ntedit_tpu_torch.cli, "
             "ntedit_tpu_torch.engine.polish, ntedit_tpu_torch.convert, "
-            "ntedit_tpu_torch.core.bfbuild; "
+            "ntedit_tpu_torch.core.bfbuild, ntedit_tpu_torch.io.spill; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntedit_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -118,7 +119,8 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("failure", ["build", "load"])
-@pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows"])
+@pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows", "polish_site_rows",
+                                     "polish_cand_masks"])
 def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -134,10 +136,13 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
     seq = torch.empty(gate_kernel.padded_len(100), dtype=torch.uint8, device="meta")
     fn = getattr(snv_kernel, wrapper)
     with pytest.raises((RuntimeError, OSError)):
+        heads = torch.empty(3, dtype=torch.int64, device="meta")
         if wrapper == "snv_cand_words":
             fn(seq, 100, df)
+        elif wrapper == "polish_cand_masks":
+            fn(seq, 100, heads, df)
         else:
-            fn(seq, 100, torch.empty(3, dtype=torch.int64, device="meta"), df, 3)
+            fn(seq, 100, heads, df, 3)
     assert fn.launches == 0
 
 
@@ -222,8 +227,6 @@ def test_snv_cand_kernel_matches_plain_on_the_card(layout, k):
 def test_snv_site_kernel_matches_plain_on_the_card(layout, k, jump):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the SNV kernels have no CPU mode")
-    from ntedit_tpu_torch.engine import flag
-
     truth, draft = card_draft(np.random.default_rng(5))
     df = snv_filter(layout, truth, k)
     n = len(draft) - k + 1
@@ -235,6 +238,31 @@ def test_snv_site_kernel_matches_plain_on_the_card(layout, k, jump):
     got = snv_kernel.snv_site_rows(seq, n, cand, df, jump)
     assert torch.equal(got, snv_kernel.snv_site_rows_plain(seq, n, cand, df, jump))
     assert int((got[:, 0] & 1).sum()) > 0 and int((got[:, 0] == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,jump", [(25, 3), (25, 1), (34, 5)])
+@pytest.mark.parametrize("layout", ["blocked", "plain"])
+def test_polish_kernels_match_plain_on_the_card(layout, k, jump):
+    """The polish site rows on a whole list of gates (cluster starts and
+    later gates, IUPAC-forced gates, heads at both contig ends) and the
+    candidate masks on the same heads, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the polish kernels have no CPU mode")
+    truth, draft = card_draft(np.random.default_rng(6))
+    df = snv_filter(layout, truth, k)
+    n = len(draft) - k + 1
+    seq = torch.from_numpy(draft).cuda()
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: len(draft)] = torch.from_numpy(draft)
+    gates = torch.cat([flag.positions_on_device(gate_kernel.gate_words(buf.cuda(), n, df)),
+                       torch.tensor([0, 1, n - k - 1, n - k, n - 1], device="cuda")]).unique()
+    rows = snv_kernel.polish_site_rows(seq, n, gates, df, jump)
+    assert torch.equal(rows, snv_kernel.polish_site_rows_plain(seq, n, gates, df, jump))
+    assert int((rows[:, 0] & 1).sum()) > 0 and int((rows[:, 0] & 32 == 0).sum()) > 0
+    masks = snv_kernel.polish_cand_masks(seq, n, gates, df)
+    assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df))
+    assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0
 
 
 @pytest.mark.cuda

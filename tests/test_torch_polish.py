@@ -258,10 +258,11 @@ def test_not_ported_options_raise(monkeypatch):
         native_repair.polish_contig_pipelined(f, None, snv_cfg, "c", seq, iter(()))
     monkeypatch.setattr(native_repair, "polish_contig_pipelined", lambda *a, **kw: None)
     monkeypatch.setattr(native_repair, "polish_contig_native", lambda *a, **kw: None)
+    # with -t > 1 the replay tries the segmented repair first
+    monkeypatch.setattr(native_repair, "polish_contig_segmented", lambda *a, **kw: None)
     pol = TPolisher(tf, None, TConfig(k=K, hash_num=3), device="cpu")
     with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
         pol.polish_contig("c", seq)
-    monkeypatch.setattr(native_repair, "polish_contig_segmented", lambda *a, **kw: None)
     pol = TPolisher(tf, None, snv_cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
         pol.polish_contig("c", seq)

@@ -1,0 +1,374 @@
+"""Polish mode's two optional device passes in the torch port (plain
+versions, on the CPU) against the JAX package's, and the Polisher's
+engines that use them.
+
+* Site rows (flag.iter_polish_site_chunks, ops/snv_kernel.py
+  polish_site_rows): at every head where both packages hand out a valid
+  row, the rows are equal (integers, tolerance 0), for blocked and plain
+  filters, k 25 and 21, jump 1 and 3; the gates are the JAX package's,
+  chunk by chunk across 2^15-head chunk seams; flags bit 5 ("device-exact
+  gate") is set on every gate but the IUPAC-forced ones.  Two differences
+  are deliberate and asserted: the port checks the bytes [h, h + 2k) that
+  the row's scan reads, where the JAX package checks [h, h + 2k - 1); and
+  the port's cluster starts are those of its own gate list, so a head
+  after an IUPAC-forced gate starts no cluster.
+* Candidate masks (flag.polish_candidate_masks): equal to the JAX
+  package's at every gate, 0xFF cases included, and computed from int64
+  positions (the JAX gather gives up past 2^31).
+* Polisher(engine="pipelined"|"native", site_rows=, cand_masks=): outputs
+  byte-equal to the JAX Polisher with NTEDIT_TPU_SITE_ROWS /
+  NTEDIT_TPU_CAND and to the host-only full scan; rows and masks reach the
+  engine, which acts on them; runs they are not exact for get neither."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from ntedit_tpu.core import bloom as jbloom
+from ntedit_tpu.engine import flag as jflag
+from ntedit_tpu.engine.config import EngineConfig as JConfig
+from ntedit_tpu.engine.polish import Polisher as JPolisher
+from ntedit_tpu.io import writers as jwriters
+from ntedit_tpu.utils import simulate
+from ntedit_tpu_torch import convert
+from ntedit_tpu_torch.core import bloom as tbloom
+from ntedit_tpu_torch.engine import flag as tflag
+from ntedit_tpu_torch.engine import native_repair
+from ntedit_tpu_torch.engine.config import EngineConfig as TConfig
+from ntedit_tpu_torch.engine.polish import Polisher as TPolisher
+from ntedit_tpu_torch.io import writers as twriters
+from ntedit_tpu_torch.ops import snv_kernel
+from ntedit_tpu_torch.utils import simulate as tsimulate
+
+CHUNK = 1 << 15
+LENGTH = 70_000  # more than two chunks of heads
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
+
+
+def workload(length, seed):
+    """(truth, draft): substitutions and short indels, IUPAC bytes, an N
+    run and a lowercase stretch."""
+    truth = simulate.random_genome(length, seed=seed)
+    draft, _ = simulate.inject_errors(truth, sub_rate=2e-3, ins_rate=3e-4, del_rate=3e-4,
+                                      seed=seed + 1)
+    draft = draft.copy()
+    rng = np.random.default_rng(seed + 2)
+    draft[rng.integers(100, len(draft) - 100, size=10)] = IUPAC[:10]
+    draft[len(draft) // 3 : len(draft) // 3 + 6] = ord("N")
+    draft[len(draft) // 2 : len(draft) // 2 + 300] |= 0x20
+    return truth, draft
+
+
+def filters(layout, k, truth, hash_num=3):
+    """(JAX host filter, JAX DeviceFilter, torch host filter, torch
+    DeviceFilter) holding the truth's k-mers."""
+    if layout == "blocked":
+        f = jbloom.BlockedKmerBloomFilter.zeros(1 << 18, hash_num, k)
+        f.insert_seq(truth)
+        arr = f.words
+    else:
+        f = jbloom.KmerBloomFilter.zeros(150_001, hash_num, k)  # not a power of two
+        f.insert_seq(truth)
+        arr = f.data
+    th, tdf = convert.filter_from_numpy(layout, arr, hash_num, k, device="cpu")
+    return f, jbloom.DeviceFilter.from_host(f), th, tdf
+
+
+def window_has(draft, heads, k, classes):
+    """bool per head: the window [h, h + k) holds a byte of ``classes``."""
+    hit = np.isin(draft & 0xDF, classes)
+    c = np.concatenate([[0], np.cumsum(hit)])
+    return c[heads + k] - c[heads] > 0
+
+
+def stream(it):
+    return [(f, g, r) for f, g, r in it]
+
+
+# The JAX package compiles its row program once per (filter shape, k, jump)
+# and unrolls the strides: on the CPU that takes 5-19 s for a blocked
+# filter and 14-120 s for a plain one (hash extension and the 64-bit modulo
+# in 32-bit halves), so the plain layout is compiled twice: with one hash,
+# and with three (the layout of the main path's btllib filter) at jump = k,
+# one stride, which keeps the unrolled program small.  The kernels are held
+# to the plain version, at hash_num 3 and 4 and jump 1, 3 and k, on the card.
+@pytest.mark.parametrize("layout,k,jump,hash_num", [("blocked", 25, 3, 3), ("blocked", 21, 1, 3),
+                                                    ("plain", 21, 3, 1), ("plain", 25, 25, 3)])
+def test_rows_match_jax_at_common_valid_heads(layout, k, jump, hash_num):
+    truth, draft = workload(LENGTH, seed=10 + k + jump)
+    _, jdf, _, tdf = filters(layout, k, truth, hash_num)
+    want = stream(jflag.iter_polish_site_chunks(draft, jdf, jump, chunk=CHUNK))
+    got = stream(tflag.iter_polish_site_chunks(draft, tdf, jump, chunk=CHUNK))
+    assert [(f, len(g)) for f, g, _ in got] == [(f, len(g)) for f, g, _ in want]
+    g = np.concatenate([x[1] for x in got])
+    np.testing.assert_array_equal(g, np.concatenate([x[1] for x in want]))
+    rows = np.concatenate([x[2] for x in got])
+    jrows = np.concatenate([x[2] for x in want])
+    assert rows.dtype == np.uint8 and rows.shape == (len(g), 6)
+    np.testing.assert_array_equal(rows[:, 0] & 32, jrows[:, 0] & 32)
+    valid, jvalid = rows[:, 0] & 1 == 1, jrows[:, 0] & 1 == 1
+    both = valid & jvalid
+    np.testing.assert_array_equal(rows[both], jrows[both])
+    assert both.sum() >= 40
+    # JAX rows the port does not hand out: the stricter validity (byte
+    # h + 2k - 1 not ACGT) or a predecessor gate forced by an IUPAC byte
+    n = len(draft) - k + 1
+    past = draft[np.minimum(g + 2 * k - 1, len(draft) - 1)] & 0xDF
+    stricter = ~np.isin(past, ACGT)
+    after_forced = np.isin(g - 1, g[window_has(draft, g, k, IUPAC)])
+    assert not (jvalid & ~valid & ~stricter & ~after_forced).any()
+    assert not valid[g > n - k - 1].any()
+    assert (rows[~valid, 1:] == 0).all() and (rows[~valid, 0] & ~np.uint8(32) == 0).all()
+    # check_missing: a cluster start's windows miss the error it starts at
+    strides = len(range(0, k, jump))
+    assert (rows[valid, 1] <= strides).all() and rows[valid, 1].max() > 0
+
+
+def test_rows_at_the_stricter_validity():
+    """A cluster start h (a substitution at h + k - 1) whose byte h + 2k - 1
+    is N: every byte the JAX package checks is ACGT, but the last stride
+    window (kk = k - 1, jump 3 divides 24) reads the N.  The JAX row is
+    valid, the port's carries bit 5 alone; with the N one byte later both
+    are valid and equal."""
+    k, jump = 25, 3
+    truth = simulate.random_genome(3000, seed=5)
+    _, jdf, _, tdf = filters("blocked", k, truth)  # the first case's compiled program
+    h = 1000
+    for at, port_valid in ((h + 2 * k - 1, False), (h + 2 * k, True)):
+        draft = truth.copy()
+        draft[h + k - 1] = ACGT[(int(np.flatnonzero(ACGT == truth[h + k - 1])[0]) + 1) % 4]
+        draft[at] = ord("N")
+        (_, jg, jrows), = list(jflag.iter_polish_site_chunks(draft, jdf, jump, chunk=CHUNK))
+        (_, g, rows), = list(tflag.iter_polish_site_chunks(draft, tdf, jump, chunk=CHUNK))
+        np.testing.assert_array_equal(g, jg)
+        i = int(np.searchsorted(g, h))
+        assert g[i] == h and (i == 0 or g[i - 1] != h - 1)
+        assert jrows[i, 0] & 1 == 1
+        if port_valid:
+            np.testing.assert_array_equal(rows[i], jrows[i])
+        else:
+            assert rows[i].tolist() == [32, 0, 0, 0, 0, 0]
+
+
+def test_exact_gate_bit():
+    """Flags bit 5 is off at every gate whose window holds an IUPAC byte
+    (a forced gate) and on at every other gate."""
+    k = 25
+    truth, draft = workload(40_000, seed=31)
+    draft[np.arange(3000, 40_000, 997)] = IUPAC[np.arange(38) % 10]
+    *_, tdf = filters("plain", k, truth)
+    chunks = list(tflag.iter_polish_site_chunks(draft, tdf, 3, chunk=CHUNK))
+    g = np.concatenate([c[1] for c in chunks])
+    rows = np.concatenate([c[2] for c in chunks])
+    forced = window_has(draft, g, k, IUPAC)
+    assert forced.sum() > 300 and (~forced).sum() > 300
+    np.testing.assert_array_equal(rows[:, 0] & 32 == 32, ~forced)
+    np.testing.assert_array_equal(g, tflag.flag_contig_gates(draft, tdf, chunk=CHUNK))
+
+
+def test_site_chunks_across_seams():
+    """Chunk by chunk the gates are iter_gate_chunks' and the JAX package's;
+    each chunk's rows are the whole list's rows but at its first gate,
+    which always starts a cluster (a cluster crosses each seam here)."""
+    k, jump = 25, 3
+    truth, draft = workload(LENGTH, seed=38)
+    for seam in (CHUNK, 2 * CHUNK):  # a substitution whose cluster spans the seam
+        p = seam + k // 2
+        draft[p] = ACGT[(int(np.flatnonzero(ACGT == draft[p] & 0xDF)[0]) + 2) % 4]
+    _, jdf, _, tdf = filters("blocked", k, truth)
+    got = stream(tflag.iter_polish_site_chunks(draft, tdf, jump, chunk=CHUNK))
+    want = stream(jflag.iter_polish_site_chunks(draft, jdf, jump, chunk=CHUNK))
+    plain = list(tflag.iter_gate_chunks(draft, tdf, chunk=CHUNK))
+    assert len(got) == 3
+    for (f, g, _), (jf, jg, _), (pf, pg) in zip(got, want, plain):
+        assert f == jf == pf
+        np.testing.assert_array_equal(g, jg)
+        np.testing.assert_array_equal(g, pg)
+    g = np.concatenate([x[1] for x in got])
+    rows = np.concatenate([x[2] for x in got])
+    n = len(draft) - k + 1
+    whole = snv_kernel.polish_site_rows(torch.from_numpy(draft), n, torch.from_numpy(g),
+                                        tdf, jump).numpy()
+    firsts = np.cumsum([0] + [len(x[1]) for x in got[:-1]])
+    at_seam = np.zeros(len(g), dtype=bool)
+    at_seam[firsts] = True
+    np.testing.assert_array_equal(rows[~at_seam], whole[~at_seam])
+    for i, seam in zip(firsts[1:], (CHUNK, 2 * CHUNK)):
+        assert g[i] == seam and g[i - 1] == seam - 1  # the cluster crosses it
+        assert rows[i, 0] & 1 == 1 and whole[i, 0] & 1 == 0
+
+
+@pytest.mark.parametrize("layout", ["blocked", "plain"])
+def test_masks_match_jax(layout):
+    k = 25
+    truth, draft = workload(LENGTH, seed=44)
+    _, jdf, _, tdf = filters(layout, k, truth)
+    gates = tflag.flag_contig_gates(draft, tdf, chunk=CHUNK)
+    want = jflag.polish_candidate_masks(draft, jdf, gates, chunk=CHUNK)
+    got = tflag.polish_candidate_masks(draft, tdf, gates)
+    assert got.dtype == np.uint8 and got.shape == gates.shape
+    np.testing.assert_array_equal(got, want)
+    other = window_has(draft, gates, k, np.setdiff1d(np.arange(256), ACGT))
+    np.testing.assert_array_equal(got == 0xFF, other)
+    assert other.sum() > 100 and (got[~other] != 0).sum() > 100
+    assert tflag.polish_candidate_masks(draft, tdf, gates[:0]).shape == (0,)
+
+
+def test_mask_positions_above_2_31():
+    """The masks of windows at heads past 2^31 and 2^32, on a contig that is
+    one byte expanded (no storage is allocated): the same as at a head near
+    the start.  The poly-A k-mer with its last base C is in the filter,
+    poly-A itself is not, so every mask is 0b0010."""
+    k = 25
+    f = tbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, k)
+    f.insert_seq(np.frombuffer(b"A" * (k - 1) + b"C", np.uint8))
+    df = tbloom.DeviceFilter.from_host(f, "cpu")
+    length = (1 << 32) + 1000
+    big = torch.full((1,), ord("A"), dtype=torch.uint8).expand(length)
+    heads = torch.tensor([5, (1 << 31) - 1, 1 << 31, (1 << 31) + 7, (1 << 32) + 3,
+                          length - k], dtype=torch.int64)
+    masks = snv_kernel.polish_cand_masks(big, length - k + 1, heads, df)
+    assert masks.tolist() == [0b0010] * len(heads)
+    past = torch.tensor([length - k + 1, -1], dtype=torch.int64)  # no window there
+    assert snv_kernel.polish_cand_masks(big, length - k + 1, past, df).tolist() == [0xFF] * 2
+
+
+def host_scan(tf, cfg, draft):
+    return native_repair.polish_contig_native(tf, None, cfg.validate(), "ctg one", draft)
+
+
+def render(writers, result):
+    sinks = io.StringIO(), io.StringIO(), io.StringIO()
+    writers.write_contig(result, *sinks, {})
+    return tuple(s.getvalue() for s in sinks)
+
+
+POLISHER_CASES = [("pipelined", True, 1), ("pipelined", True, 4), ("pipelined", False, 4),
+                  ("native", True, 1), ("native", True, 4), ("native", False, 4)]
+
+
+@pytest.mark.parametrize("engine,on,threads", POLISHER_CASES)
+def test_polisher_matches_jax_and_the_host_scan(engine, on, threads, monkeypatch):
+    k = 25
+    truth, draft = workload(50_000, seed=60 + threads)
+    jf, _, tf, _ = filters("blocked", k, truth)
+    monkeypatch.setenv("NTEDIT_TPU_SITE_ROWS" if engine == "pipelined" else "NTEDIT_TPU_CAND",
+                       "1" if on else "0")
+    jpol = JPolisher(jf, None, JConfig(k=k, hash_num=3, threads=threads), chunk=CHUNK,
+                     engine=engine)
+    tpol = TPolisher(tf, None, TConfig(k=k, hash_num=3, threads=threads), chunk=CHUNK,
+                     device="cpu", engine=engine, site_rows=on, cand_masks=on)
+    want = jpol.polish_contig("ctg one", draft)
+    got = tpol.polish_contig("ctg one", draft)
+    scan = host_scan(tf, TConfig(k=k, hash_num=3), draft)
+    assert len(got.subs) > 20
+    assert render(twriters, got) == render(jwriters, want) == render(twriters, scan)
+    assert got.edited == scan.edited
+
+
+def spy_on_the_engine(monkeypatch):
+    """Record (n_gates, masks, rows) of every native call."""
+    seen = []
+    real = native_repair._run_raw
+
+    def spy(lib, contig, pristine, gates, *args, site_rows=None):
+        cand = args[3] if len(args) > 3 else None  # (bf, reject, params, gate_cand)
+        seen.append((0 if gates is None else len(gates), cand, site_rows))
+        return real(lib, contig, pristine, gates, *args, site_rows=site_rows)
+
+    monkeypatch.setattr(native_repair, "_run_raw", spy)
+    return seen
+
+
+def test_rows_and_masks_reach_the_engine(monkeypatch):
+    """The pipelined engine with rows hands the native calls rows parallel
+    to their gates, the native engine with masks hands them masks; and the
+    engine acts on what it is handed (rows or masks that claim the wrong
+    probe results change the output)."""
+    k = 25
+    truth, draft = workload(30_000, seed=91)
+    *_, tf, _ = filters("blocked", k, truth)
+    cfg = TConfig(k=k, hash_num=3, threads=4)
+    scan = host_scan(tf, cfg, draft)
+    seen = spy_on_the_engine(monkeypatch)
+    for engine in ("pipelined", "native"):
+        seen.clear()
+        pol = TPolisher(tf, None, cfg, chunk=CHUNK, device="cpu", engine=engine,
+                        site_rows=True, cand_masks=True)
+        assert pol.polish_contig("c", draft).edited == scan.edited
+        assert seen
+        if engine == "pipelined":
+            assert all(c is None and r is not None and r.shape == (n, 6) for n, c, r in seen)
+            rows = np.concatenate([r for _, _, r in seen])
+            assert (rows[:, 0] & 1).sum() > 20 and (rows[:, 0] & 32).sum() > len(rows) // 2
+        else:
+            assert all(r is None and c is not None and c.shape == (n,) for n, c, r in seen)
+            masks = np.concatenate([c for _, c, _ in seen])
+            assert (masks == 0xFF).sum() > 0 and ((masks != 0xFF) & (masks != 0)).sum() > 20
+    gates = tflag.flag_contig_gates(draft, pol.df, chunk=CHUNK)
+    n = len(draft) - k + 1
+    rows = snv_kernel.polish_site_rows(torch.from_numpy(draft), n, torch.from_numpy(gates),
+                                       pol.df, 3).numpy()
+    lying = rows.copy()
+    lying[lying[:, 0] & 1 == 1, 1] = 0  # "no stride window is missing": no attempt
+    masks = np.zeros(len(gates), dtype=np.uint8)  # "no base fits"
+    for kw in (dict(site_rows=lying), dict(gate_cand=masks)):
+        res = native_repair.polish_contig_native(tf, None, cfg, "c", draft, gate_hint=gates, **kw)
+        assert res.edited != scan.edited
+    res = native_repair.polish_contig_native(tf, None, cfg, "c", draft, gate_hint=gates,
+                                             site_rows=rows, gate_cand=tflag.polish_candidate_masks(
+                                                 draft, pol.df, gates))
+    assert res.edited == scan.edited
+
+
+@pytest.mark.parametrize("case", ["counting", "reject", "mode2"])
+def test_no_rows_or_masks_where_they_are_not_exact(case, monkeypatch):
+    """A counting filter, a reject filter and -m 2 get neither rows nor
+    masks (the engine's probes there are not plain contains), whatever the
+    switches say; the outputs equal the host-only scan."""
+    k = 25
+    truth, draft = workload(30_000, seed=95)
+    *_, tf, _ = filters("blocked", k, truth)
+    rep = None
+    kw = {}
+    if case == "counting":
+        tf = tbloom.KmerCountingBloomFilter8.zeros(300_007, 3, k)
+        tsimulate.fill_counts(tf, truth, 2)
+    elif case == "reject":
+        rep = tbloom.KmerBloomFilter.zeros(20_011, 3, k)
+        rep.insert_seq(truth[2000:6000])
+    else:
+        kw = dict(mode=2)
+    cfg = TConfig(k=k, hash_num=3, threads=4, **kw)
+    want = native_repair.polish_contig_native(tf, rep, cfg, "c", draft)
+    seen = spy_on_the_engine(monkeypatch)
+    for engine in ("pipelined", "native"):
+        pol = TPolisher(tf, rep, cfg, chunk=CHUNK, device="cpu", engine=engine,
+                        site_rows=True, cand_masks=True)
+        assert not pol._polish_probes_eligible()
+        assert render(twriters, pol.polish_contig("c", draft)) == render(twriters, want)
+    assert seen and all(c is None and r is None for _, c, r in seen)
+
+
+def test_engine_choice():
+    """auto means pipelined; the engines the port has not taken raise,
+    naming ROADMAP.md; the defaults measured on the card: rows on in SNV
+    mode, off in polish mode, masks off."""
+    f = tbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, 25)
+    cfg = TConfig(k=25, hash_num=3)
+    assert TPolisher(f, device="cpu").engine == "pipelined"
+    assert TPolisher(f, device="cpu", engine="native").engine == "native"
+    for engine in ("wavefront", "sequential"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TPolisher(f, device="cpu", engine=engine)
+    with pytest.raises(ValueError, match="engine"):
+        TPolisher(f, device="cpu", engine="fast")
+    pol = TPolisher(f, None, cfg, device="cpu")
+    assert (pol.site_rows, pol.cand_masks) == (False, False)
+    snv = TPolisher(f, None, TConfig(k=25, hash_num=3, snv=True), device="cpu")
+    assert snv.site_rows is True
+    flipped = TPolisher(f, None, cfg, device="cpu", site_rows=True, cand_masks=True)
+    assert (flipped.site_rows, flipped.cand_masks) == (True, True)
