@@ -2,8 +2,8 @@
 """Smoke run of the torch port (ntedit_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as a user-sized run
-    python3 chip_smoke.py --against DIR   # the same, and the one-step count and insert
-                                          # kernels built from the checkout at DIR
+    python3 chip_smoke.py --against DIR   # the same, and the dense hashes kernel and the
+                                          # candidate kernel of the checkout at DIR in turns
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
@@ -21,16 +21,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
               same grid, blocked and plain filters: the SNV candidate kernel
               against its plain version, and the SNV site kernel (jump 1, 3
               and k) on those candidates plus heads at both contig ends, on
-              both sides of a tile edge and before N and IUPAC bytes; the
-              polish site-row kernel (jump 1, 3 and k) and the candidate-
-              mask kernel on the gates of the same inputs plus those heads.
+              both sides of a tile edge and before N and IUPAC bytes; with
+              the blocked filter the binned candidate pass (its front end's
+              bins, as multisets per range, and its probed words) with the
+              filter in 1, 16 and 256 slices; the polish site-row kernel
+              (jump 1, 3 and k) and the candidate-mask kernel on the gates
+              of the same inputs plus those heads.
               On the same k and lengths, with 0x00 separators added: the
-              filter-build kernels against their plain versions (hashes; the
-              count's partition, bucket by bucket as multisets, and its apply,
+              filter-build kernels against their plain versions (the
+              compacted hashes at sample slices 0, 1 and 3; the count's
+              partition, bucket by bucket as multisets, and its apply,
               into tables of 4m + 1 to 4m + 3 bytes split into 1, 3 and 7
               slices, the last one partial, at hash_num 1 to 4; the solid
               bits and blocked and plain insertion at cutoffs 1, 2 and 255),
-              and the count of a poly-A batch (every increment in one slot).
+              and the count and hashes of a poly-A batch (every increment in
+              one slot) and the hashes of a batch with no valid window.
 3. main     - ``python -m ntedit_tpu_torch engine -t 8`` (in-process, the
               default pipelined engine), then the same with the polish site
               rows on (through the function the command line calls, which
@@ -60,7 +65,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
               kernel alone at the shape that path gives it, one launch on a
               whole contig's candidates (the 30 Mbp contig, blocked; the 5
               Mbp contig, plain): against its plain version, its bytes
-              bound, the probe floor and a torch.take yardstick.
+              bound, the probe floor and a torch.take yardstick.  And the
+              candidate pass at snv_blocked's shape (utils/snv_sweep.py):
+              every contig's by the path (the binned pass on its dense
+              groups), by the binned pass alone and by the candidate kernel
+              a chunk at a time (with ``--against DIR``, DIR's too) in
+              turns; the binned pass's two kernels on the 30 Mbp contig's
+              first group against their plain versions, bounds and floors.
 6. filter_build - the filter build on the card from 30x of 150 bp reads
               of a seeded 4.7 Mbp genome (940,000 reads, 1% substitutions,
               a few N bytes, two gzip FASTQ files under one prefix):
@@ -84,15 +95,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
               same for the SNV candidate kernel (blocked and plain).  The
               filter-build kernels on phase 6's reads, in its 2^24-byte
               batches, at the tables polish --reads sizes for them
-              (utils/build_sweep.py): the hashes kernel on one batch; the
+              (utils/build_sweep.py): the hashes kernel on one batch (the
+              call, and its device work alone) and the histogram's pass; the
               count's partition, apply and both on one batch and the whole
               count pass; the solid bits, the insert on one batch and the
               whole insert pass; each with its plain version's ms, its bytes
               bound and its floor (the random-atomic floor in one slice and
               in the whole table; the probe floor on the solid bits and on
               the counters), the slice size and the scratch bytes.  With
-              ``--against DIR``, the one-step count and counter-reading
-              insert from DIR's sources in turns on the same batches.
+              ``--against DIR``, DIR's candidate kernel at the chunk shape
+              and its dense hashes kernel (alone, with its compaction, and
+              its histogram pass) in turns on the same inputs.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -117,7 +130,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 GENOME = 50_000_000  # bases of the main-path draft and of the timed filters
 CBF_LENGTH = 4_700_000  # bases of the counting-filter contig
-IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
 
 
 def emit(obj: dict) -> None:
@@ -136,19 +148,6 @@ def nvidia_smi() -> str:
 # simulated data
 # ---------------------------------------------------------------------------
 
-def decorate(draft: np.ndarray, rng, n_runs: int, n_iupac: int, lower: int) -> np.ndarray:
-    """Put short N runs, IUPAC bytes and one lowercase stretch into a draft."""
-    d = draft.copy()
-    L = len(d)
-    for p in rng.integers(0, max(1, L - 16), size=n_runs):
-        d[p : p + int(rng.integers(1, 13))] = ord("N")
-    d[rng.integers(0, L, size=n_iupac)] = IUPAC[rng.integers(0, len(IUPAC), size=n_iupac)]
-    if lower:
-        a = int(rng.integers(0, max(1, L - lower)))
-        d[a : a + lower] |= 0x20
-    return d
-
-
 def make_genome(lengths, seed: int):
     """Seeded truth contigs and their drafts (simulate.inject_errors
     defaults plus N runs, IUPAC bytes and a lowercase stretch)."""
@@ -161,8 +160,8 @@ def make_genome(lengths, seed: int):
         d = t
         if L > 1000:
             d, _ = simulate.inject_errors(t, seed=seed + 2 * i + 1)
-            d = decorate(d, rng, n_runs=max(1, L // 5_000_000), n_iupac=max(1, L // 1_000_000),
-                         lower=min(2000, L // 10))
+            d = simulate.decorate(d, rng, n_runs=max(1, L // 5_000_000),
+                                  n_iupac=max(1, L // 1_000_000), lower=min(2000, L // 10))
         truths.append(t)
         drafts.append(d)
     return truths, drafts
@@ -243,11 +242,15 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "gate_words_kernelILi2E": "counting", "probe_floor_kernelIjE": "floor_words",
           "probe_floor_kernelIhE": "floor_counters",
           "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
+          "snv_cand_bin_kernelILb0E": "cand_bin_count", "snv_cand_bin_kernelILb1E": "cand_bin_scatter",
+          "snv_cand_probe_kernel": "cand_probe",
           "site_rows_kernelILi0ELb0E": "site_plain", "site_rows_kernelILi1ELb0E": "site_blocked",
           "site_rows_kernelILi0ELb1E": "polish_site_plain",
           "site_rows_kernelILi1ELb1E": "polish_site_blocked",
           "cand_masks_kernelILi0E": "masks_plain", "cand_masks_kernelILi1E": "masks_blocked",
-          "kmer_hashes_kernel": "kmer_hashes",
+          "kmer_valid_count_kernelILb0E": "kmer_valid_count",
+          "kmer_valid_count_kernelILb1E": "kmer_valid_count_sampled",
+          "kmer_valid_hashes_kernel": "kmer_valid_hashes",
           "kmer_partition_kernelILb0E": "kmer_partition_count",
           "kmer_partition_kernelILb1E": "kmer_partition_scatter",
           "kmer_count_apply_kernel": "kmer_count_apply", "kmer_solid_bits_kernel": "kmer_solid_bits",
@@ -369,21 +372,52 @@ def site_heads(words, draft: np.ndarray, n: int, k: int):
     return torch.unique(torch.cat([flag.positions_on_device(words), extra]))
 
 
+def check_binned(seq_dev, n: int, df, want) -> tuple:
+    """The binned candidate pass against its plain versions and the
+    candidate words ``want``, with the filter in 1, 16 and 256 slices:
+    (cases, differences: count matrix, scan, each (slice, column) range as
+    a multiset, the forced words and the probed words)."""
+    import torch
+
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    diff = 0
+    for bits in (None, 10, 0):
+        got, plain = (snv_kernel.CandBins(df.modulus, n, seq_dev.device, bits) for _ in range(2))
+        words = torch.full((-(-n // 32),), -1, dtype=torch.int32, device=seq_dev.device)
+        plain_words = words.clone()
+        snv_kernel.snv_cand_bin(seq_dev, n, df, got, words)
+        snv_kernel.snv_cand_bin_plain(seq_dev, n, df, plain, plain_words)
+        cells = got.cells()
+        diff += int((got.counts[:cells] != plain.counts[:cells]).sum())
+        diff += int((got.ends[:cells] != plain.ends[:cells]).sum())
+        if not diff:
+            diff += sum(int((a != b).sum()) for a, b in zip(snv_kernel.bin_multiset(got),
+                                                            snv_kernel.bin_multiset(plain)))
+        diff += int((words != plain_words).sum())
+        snv_kernel.snv_cand_probe(got, df, words)
+        snv_kernel.snv_cand_probe_plain(plain, df, plain_words)
+        diff += int((words != plain_words).sum()) + int((words != want).sum())
+    return 3, diff
+
+
 def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
     """The SNV kernels vs their plain versions on one input: (differing
-    candidate words, site cases, differing site rows)."""
+    candidate words, site cases, differing site rows, binned cases,
+    binned differences)."""
     from ntedit_tpu_torch.ops import snv_kernel
 
     got = snv_kernel.snv_cand_words(seq_dev, n, df)
     want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
     words = int((got != want).sum())
+    bin_cases, bin_diff = check_binned(seq_dev, n, df, want) if df.blocked else (0, 0)
     cand = site_heads(want, draft, n, df.k)
     rows = 0
     for jump in jumps:
         got = snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump)
         want = snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump)
         rows += int((got != want).any(1).sum())
-    return words, len(jumps), rows
+    return words, len(jumps), rows, bin_cases, bin_diff
 
 
 def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
@@ -447,7 +481,7 @@ def check_count(seq_dev, n: int, k: int, hash_num: int, slots: int) -> int:
 
 def check_build_kernels(seq_dev, n: int, k: int, case: int) -> int:
     """The filter-build kernels vs their plain versions on one input: the
-    hashes; the count (partition and apply) at hash_num 1 + case % 4 into
+    hashes (sample slices 0, 1 and 3); the count (partition and apply) at hash_num 1 + case % 4 into
     a table of 4m + 1 + case % 3 bytes split into 1, 3 or 7 slices of 8192
     counters (by case), the last one partial; the solid bits at cutoffs 1,
     2 and 255 over those counts, and blocked and plain (not 2^n bits)
@@ -458,8 +492,12 @@ def check_build_kernels(seq_dev, n: int, k: int, case: int) -> int:
     from ntedit_tpu_torch.ops import build_kernel as bk
 
     dev = seq_dev.device
-    got, want = bk.kmer_hashes(seq_dev, n, k), bk.kmer_hashes_plain(seq_dev, n, k)
-    diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+    diff = 0
+    for s in (0, 1, 3):
+        got, valid = bk.kmer_valid_hashes(seq_dev, n, k, s)
+        want, want_valid = bk.kmer_valid_hashes_plain(seq_dev, n, k, s)
+        diff += int(got.numel() != want.numel() or valid != want_valid)
+        diff += 0 if got.numel() != want.numel() else int((got != want).sum())
     hash_num = 1 + case % 4
     ways = (1, 3, 7)[case % 3]
     slots = (ways - 1) * (1 << BUILD_SLICE_BITS) + 4 * 1000 + 1 + case % 3
@@ -483,17 +521,26 @@ def check_build_kernels(seq_dev, n: int, k: int, case: int) -> int:
 
 def check_poly_a(dev) -> int:
     """The count of a poly-A batch (every window one k-mer: at hash_num 1
-    every increment in one slot of one bucket) against the plain count."""
+    every increment in one slot of one bucket) against the plain count;
+    the hashes of that batch and of one of separators only (no valid
+    window), against their plain versions."""
     import torch
 
+    from ntedit_tpu_torch.ops import build_kernel as bk
     from ntedit_tpu_torch.ops import gate_kernel
 
     k = 25
     n = 1 << 20
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    empty = buf.to(dev)
     buf[: n + k - 1] = ord("A")
     seq = buf.to(dev)
-    return sum(check_count(seq, n, k, h, 7 * (1 << BUILD_SLICE_BITS) - 3) for h in (1, 3))
+    diff = sum(check_count(seq, n, k, h, 7 * (1 << BUILD_SLICE_BITS) - 3) for h in (1, 3))
+    for batch in (seq, empty):
+        got, valid = bk.kmer_valid_hashes(batch, n, k)
+        want, want_valid = bk.kmer_valid_hashes_plain(batch, n, k)
+        diff += int(valid != want_valid) + int(not torch.equal(got, want))
+    return diff
 
 
 def phase_kernel() -> dict:
@@ -507,7 +554,7 @@ def phase_kernel() -> dict:
     rng = np.random.default_rng(7)
     truth = simulate.random_genome(40_000, seed=70)
     draft, _ = simulate.inject_errors(truth, sub_rate=3e-3, seed=71)
-    draft = decorate(draft, rng, n_runs=4, n_iupac=40, lower=700)
+    draft = simulate.decorate(draft, rng, n_runs=4, n_iupac=40, lower=700)
     # the last head's tail bears an alternate: a stretch of the truth, its last base changed
     draft[-60:] = truth[1000:1060]
     draft[-1] = b"ACGT"[(b"ACGT".index(int(truth[1059])) + 1) % 4]
@@ -517,7 +564,7 @@ def phase_kernel() -> dict:
     count = {"cases": 0, "differing_words": 0, "cand_cases": 0, "cand_differing_words": 0,
              "site_cases": 0, "site_differing_rows": 0, "polish_site_cases": 0,
              "polish_site_differing_rows": 0, "mask_cases": 0, "mask_differing": 0,
-             "build_cases": 0, "build_differing": 0}
+             "bin_cases": 0, "bin_differing": 0, "build_cases": 0, "build_differing": 0}
     bad = []
 
     def check_all(k, filters, lengths):
@@ -537,14 +584,17 @@ def phase_kernel() -> dict:
                         bad.append({"k": k, "filter": name, "L": L, "snv": snv, "words": diff})
                 if df.counting or p != 1:
                     continue
-                words, site_cases, rows = check_snv_kernels(seq_dev, draft[:L], n, df, jumps)
+                words, site_cases, rows, bin_cases, bins = check_snv_kernels(
+                    seq_dev, draft[:L], n, df, jumps)
                 count["cand_cases"] += 1
                 count["cand_differing_words"] += words
                 count["site_cases"] += site_cases
                 count["site_differing_rows"] += rows
-                if words or rows:
+                count["bin_cases"] += bin_cases
+                count["bin_differing"] += bins
+                if words or rows or bins:
                     bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
-                                "site_rows": rows})
+                                "site_rows": rows, "binned": bins})
                 cases, rows, masks = check_polish_kernels(seq_dev, draft[:L], n, df, jumps)
                 count["polish_site_cases"] += cases
                 count["polish_site_differing_rows"] += rows
@@ -578,7 +628,7 @@ def phase_kernel() -> dict:
     check_all(25, [("plain_8e9_bits", big_df, 1)], [len(draft)])
     del big_df
     diff = check_poly_a(dev)
-    count["build_cases"] += 2
+    count["build_cases"] += 4
     count["build_differing"] += diff
     if diff:
         bad.append({"poly_a_build_differing": diff})
@@ -959,29 +1009,6 @@ def phase_counting(work: str) -> list:
 # phase 5: SNV mode
 # ---------------------------------------------------------------------------
 
-def make_snv_genome(lengths, seed: int):
-    """(references, variants): seeded reference contigs with a few N runs,
-    IUPAC bytes and a lowercase stretch, and for each a copy of the clean
-    reference with substitutions only, about 1 per kbp: the genome whose
-    k-mers the filter holds.  Also the number of substitutions."""
-    from ntedit_tpu_torch.utils import simulate
-
-    rng = np.random.default_rng(seed)
-    refs, variants, planted = [], [], 0
-    for i, L in enumerate(lengths):
-        t = simulate.random_genome(L, seed=seed + 2 * i)
-        v, r = t, t
-        if L > 1000:
-            v, edits = simulate.inject_errors(t, sub_rate=1e-3, ins_rate=0.0, del_rate=0.0,
-                                              seed=seed + 2 * i + 1)
-            planted += len(edits)
-            r = decorate(t, rng, n_runs=max(1, L // 5_000_000), n_iupac=max(1, L // 1_000_000),
-                         lower=min(2000, L // 10))
-        refs.append(r)
-        variants.append(v)
-    return refs, variants, planted
-
-
 def run_snv_engine(tag: str, work: str, bf_path: str, draft_path: str, site_rows: bool) -> dict:
     """``engine -s 1 -t 8``: through the command line with the device's
     site rows (its default), or through the function the command line calls
@@ -991,7 +1018,10 @@ def run_snv_engine(tag: str, work: str, bf_path: str, draft_path: str, site_rows
     from ntedit_tpu_torch.ops import snv_kernel
 
     prefix = os.path.join(work, tag)
-    snv_kernel.snv_cand_words.launches = snv_kernel.snv_site_rows.launches = 0
+    counted = (snv_kernel.snv_cand_words, snv_kernel.snv_cand_bin, snv_kernel.snv_cand_probe,
+               snv_kernel.snv_site_rows)
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     if site_rows:
         cli.main(["engine", "-r", bf_path, "-f", draft_path, "-b", prefix, "--device", "cuda",
@@ -1004,6 +1034,8 @@ def run_snv_engine(tag: str, work: str, bf_path: str, draft_path: str, site_rows
         records = sum(1 for _ in f) - 1
     return {"prefix": prefix, "site_rows": site_rows, "wall_s": wall, "records": records,
             "cand_launches": snv_kernel.snv_cand_words.launches,
+            "bin_launches": snv_kernel.snv_cand_bin.launches,
+            "probe_launches": snv_kernel.snv_cand_probe.launches,
             "site_launches": snv_kernel.snv_site_rows.launches}
 
 
@@ -1067,21 +1099,21 @@ def snv_time_split(host_bf, draft_path: str, threads: int) -> dict:
     return out
 
 
-def phase_snv(work: str) -> list:
+def phase_snv(work: str, against=None) -> list:
     import torch
 
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.utils import simulate
 
     def site_kernel(host_bf, seq):
-        dev = torch.device("cuda")
-        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
-        return snv_site_numbers(seq, bloom.DeviceFilter.from_host(host_bf, dev), cfg.jump, flush)
+        return snv_site_numbers(seq, bloom.DeviceFilter.from_host(host_bf, torch.device("cuda")),
+                                cfg.jump, flush_buffer())
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # main_blocked's
     t0 = time.perf_counter()
-    refs, variants, planted = make_snv_genome(lengths, seed=700)
+    refs, variants, planted = simulate.snv_genome(lengths, seed=700)  # utils/snv_sweep.py's
     draft_path = os.path.join(work, "ref50.fa")
     write_fasta(draft_path, refs)
     sim_s = time.perf_counter() - t0
@@ -1095,13 +1127,18 @@ def phase_snv(work: str) -> list:
     cfg = EngineConfig(k=k, hash_num=3, snv=True, threads=1).validate()
     bases = sum(L for L in lengths if L >= cfg.min_contig_len)
 
-    def checked(tag, bp, runs, ref_s, same, extra):
+    def checked(tag, bp, runs, ref_s, same, extra, binned):
         row = {"phase": tag, "bp": bp, "runs": runs, "reference_full_scan_s": ref_s,
                "byte_identical": same, **extra}
         for r in runs:
             r["bp_per_s"] = bp / r["wall_s"]
-            if r["cand_launches"] <= 0 or (r["site_rows"] and r["site_launches"] <= 0):
+            # the blocked filter's dense groups go through the binned pass,
+            # its sparse tails (and the plain filter) through the candidate kernel
+            if r["cand_launches"] <= 0 or (r["site_rows"] and r["site_launches"] <= 0) or (
+                    binned and min(r["bin_launches"], r["probe_launches"]) <= 0):
                 raise AssertionError(f"{tag}: an SNV kernel was never launched: {r}")
+            if not binned and r["bin_launches"] + r["probe_launches"]:
+                raise AssertionError(f"{tag}: the plain filter went through the binned pass: {r}")
             if not r["site_rows"] and r["site_launches"]:
                 raise AssertionError(f"{tag}: the run without rows launched the site kernel")
             if r["records"] <= 0:
@@ -1132,7 +1169,8 @@ def phase_snv(work: str) -> list:
                     "planted_variants": planted, "simulate_s": sim_s, "filter_build_s": build_s,
                     "filter_bytes": blk.bytes, "contigs": lengths, "reference": "full_scan_4_threads",
                     "split": snv_time_split(blk, draft_path, 8),
-                    "site_kernel": site_kernel(blk, refs[0])})]
+                    "site_kernel": site_kernel(blk, refs[0]),
+                    "binned": binned_numbers(refs, blk, flush_buffer(), against)}, binned=True)]
     del blk
     torch.cuda.empty_cache()
     # the plain layout on the 5 Mbp contig alone
@@ -1150,7 +1188,8 @@ def phase_snv(work: str) -> list:
     runs = [run_snv_engine("snv_plain_rows", work, pl_path, small_path, True)]
     same = {"rows_vs_full_scan": _same_outputs(runs[0]["prefix"], ref_prefix)}
     out.append(checked("snv_plain", lengths[2], runs, ref_s, same,
-                       {"filter_bytes": pl.bytes, "site_kernel": site_kernel(pl, refs[2])}))
+                       {"filter_bytes": pl.bytes, "site_kernel": site_kernel(pl, refs[2])},
+                       binned=False))
     torch.cuda.empty_cache()
     return out
 
@@ -1197,7 +1236,8 @@ def _launch_counted():
     from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
     return (*build_kernel.KERNELS, gate_kernel.gate_words, snv_kernel.snv_cand_words,
-            snv_kernel.snv_site_rows, snv_kernel.polish_site_rows, snv_kernel.polish_cand_masks)
+            snv_kernel.snv_cand_bin, snv_kernel.snv_cand_probe, snv_kernel.snv_site_rows,
+            snv_kernel.polish_site_rows, snv_kernel.polish_cand_masks)
 
 
 def kernel_launches() -> dict:
@@ -1257,8 +1297,9 @@ def plain_build(pieces, k: int, hash_num: int, nbits: int, slots: int, layout: s
 
 def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int) -> dict:
     """The polish --reads path's stages one at a time, none overlapped, on
-    the pieces already read: the histogram (hashes kernel and compaction,
-    then sampling and unique-count), the count pass, the insert pass,
+    the pieces already read: the histogram (the uploads and the hashes
+    kernel, which samples once the kept hashes outgrow the budget, then
+    the unique-count), the count pass, the insert pass,
     download and save, the engine."""
     import torch
 
@@ -1276,10 +1317,16 @@ def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int)
         out[name] = time.perf_counter() - t0
         return got
 
-    hashes = timed("histogram_kernel_s", lambda: [
-        build_kernel.valid_hashes(seq, n, k) for seq, n in bfbuild.upload_batches(pieces, k, dev)])
-    hist = timed("histogram_unique_s", lambda: bfbuild.histogram_of(hashes, k))
-    del hashes
+    kept = bfbuild.SampledHashes(1 << 26)
+
+    def hashes():
+        for seq, n in bfbuild.upload_batches(pieces, k, dev):
+            s = kept.s
+            kept.add(*build_kernel.kmer_valid_hashes(seq, n, k, s), s)
+
+    timed("histogram_kernel_s", hashes)
+    hist = timed("histogram_unique_s", lambda: kept.histogram(k))
+    del kept
     nbits, slots, _ = bfbuild.filter_sizes(hist, 2)
     builder = bfbuild.FilterBuilder(k, 3, nbits, slots, "blocked", dev)
     timed("count_pass_s", lambda: [builder.count_batch(seq, n)
@@ -1294,35 +1341,21 @@ def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int)
 
 
 def build_kernel_numbers(pieces: list, flush, against) -> dict:
-    """The filter-build kernels on the reads' batches (utils/build_sweep.py
-    for the count and insert passes, at the tables polish --reads sizes
-    for them; with ``against``, the one-step kernels of that checkout in
-    turns) and the hashes kernel on the first batch: ms (CUDA events, L2
-    flushed), the plain version's ms and the bytes bound (the ASCII once,
-    the hashes and validity written once)."""
+    """The filter-build kernels on the reads' batches (utils/build_sweep.py,
+    at the tables polish --reads sizes for them): the hashes kernel on the
+    first batch and the histogram's pass (with ``against``, the dense
+    kernel of that checkout and its compaction in turns), the count and
+    insert passes; ms (CUDA events, L2 flushed), the plain version's ms,
+    the bytes bound and a floor."""
     import torch
 
-    from ntedit_tpu_torch.ops import build_kernel as bk
     from ntedit_tpu_torch.utils import build_sweep
+    from ntedit_tpu_torch.utils.other import DenseHashes
 
-    dev = torch.device("cuda")
-    k = build_sweep.K
-    seqs = build_sweep.upload(pieces, dev)
-    seq, n = seqs[0]
-    got = bk.kmer_hashes(seq, n, k)
-    want = bk.kmer_hashes_plain(seq, n, k)
-    err = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
-    if err:
-        raise AssertionError("the hashes kernel differs from its plain version")
-    nbytes = n + k - 1 + 8 * n + 4 * -(-n // 32)
-    ms = time_cuda(lambda: bk.kmer_hashes(seq, n, k), 20, flush)
-    out = {"kmer_hashes": {
-        "windows": n, "valid": int(bk.unpack_bits(want[1], n).sum()), "bytes": nbytes, "ms": ms,
-        "plain_ms": time_cuda(lambda: bk.kmer_hashes_plain(seq, n, k), 3, flush),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "floor_ms": build_sweep.copy_ms(nbytes, flush),
-        "differing": err}}
-    old = build_sweep.OneStep(against) if against else None
-    out.update(build_sweep.build_numbers(seqs, flush, old))
+    seqs = build_sweep.upload(pieces, torch.device("cuda"))
+    other = DenseHashes(against) if against else None
+    out = {"kmer_valid_hashes": build_sweep.hashes_numbers(seqs, flush, other)}
+    out.update(build_sweep.build_numbers(seqs, flush))
     return out
 
 
@@ -1353,7 +1386,7 @@ def phase_filter_build(work: str, against=None) -> dict:
     # polish --reads: the main path of the build, blocked, cutoff 2
     wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
                                     str(k), "-t", "8", "-b", os.path.join(work, "fb")], work)
-    for name in ("kmer_hashes", "kmer_partition", "kmer_count_apply", "kmer_solid_bits",
+    for name in ("kmer_valid_hashes", "kmer_partition", "kmer_count_apply", "kmer_solid_bits",
                  "kmer_insert", "gate_words"):
         if launches[name] <= 0:
             raise AssertionError(f"polish --reads never launched {name}: {launches}")
@@ -1443,7 +1476,7 @@ def phase_filter_build(work: str, against=None) -> dict:
     ref_path, sample_path = os.path.join(work, "ref5.fa"), os.path.join(work, "sample5.fa")
     wall, launches, peak = run_cli(["snv", "--reference", ref_path, "--genome", sample_path,
                                     "-k", str(k), "-t", "8"], work)
-    for name in ("kmer_hashes", "kmer_insert", "snv_cand_words", "snv_site_rows"):
+    for name in ("kmer_valid_hashes", "kmer_insert", "snv_cand_words", "snv_site_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"snv --genome never launched {name}: {launches}")
     sbf = bloom.load_any(os.path.join(work, f"sample5_k{k}.bf"))
@@ -1560,6 +1593,38 @@ def snv_site_probed(seq_dev, n: int, cand, df, jump: int) -> tuple:
     return int(torch.unique(torch.cat(sectors)).numel()), int(valid.sum()), probes
 
 
+def flush_buffer():
+    """256 MiB on the card, five times the L2: zeroed before a timed launch."""
+    import torch
+
+    return torch.empty(256 << 20, dtype=torch.uint8, device=torch.device("cuda"))
+
+
+def binned_numbers(refs, host_bf, flush, against) -> dict:
+    """The SNV candidate pass at the shape snv_blocked gives it: the whole
+    pass over every contig (on the card; the words) by the path, which bins
+    its dense groups, by the binned pass on every group, and by the
+    candidate kernel one chunk at a time (with ``against``, that
+    checkout's kernel too), in turns, each pass's words held to the
+    kernel's; and the binned pass's two kernels on the 30 Mbp contig's
+    first group (7 chunks) against their plain versions, their bounds and
+    floors (utils/snv_sweep.py)."""
+    import torch
+
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.utils import snv_sweep
+    from ntedit_tpu_torch.utils.other import CandWords
+
+    df = bloom.DeviceFilter.from_host(host_bf, torch.device("cuda"))
+    contigs = snv_sweep.contigs_on_card(refs, df.device)
+    out = {"pass": snv_sweep.pass_numbers(contigs, df, flush, CandWords(against) if against
+                                          else None),
+           **snv_sweep.kernel_numbers(*contigs[0], df, flush)}
+    if out["differing"]:
+        raise AssertionError(f"a binned kernel differs from its plain version: {out}")
+    return out
+
+
 def time_cuda(fn, reps: int, flush, reset=None) -> float:
     """Median ms of ``fn`` over ``reps`` launches, L2 flushed before each
     (and ``reset()`` called before that, untimed)."""
@@ -1593,29 +1658,38 @@ def yardsticks(table, probes: int, threads: int, batch: int, flush) -> tuple:
     return floor_ms, time_cuda(lambda: torch.take(table, idx), 10, flush)
 
 
-def snv_cand_numbers(seq_dev, n: int, L: int, df, flush) -> dict:
+def snv_cand_numbers(seq_dev, n: int, L: int, df, flush, other=None) -> dict:
     """The SNV candidate kernel on the chunk against its plain version, its
     bytes bound, the probe floor at its own probe count and loads in
-    flight, and a torch.take gather of as many random words."""
+    flight, and a torch.take gather of as many random words; with
+    ``other`` (utils/other.py CandWords), that checkout's kernel in turns."""
     from ntedit_tpu_torch.ops import snv_kernel
+    from ntedit_tpu_torch.utils import snv_sweep
 
     got = snv_kernel.snv_cand_words(seq_dev, n, df)
     want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
     diff = int((got != want).sum())
     err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
+    if other is not None:
+        diff += int((other.words(seq_dev, n, df) != want).sum())
     if diff or err:
         raise AssertionError("SNV candidate kernel differs from plain at the chunk shape")
     sectors, live, probes = snv_cand_probed(seq_dev, n, df)
     nbytes = L + 4 * (-(-n // 32)) + 32 * sectors
     floor_ms, take_ms = yardsticks(df.table, probes, -(-n // 32),
                                    snv_kernel.CAND_BATCH[df.layout], flush)
-    ms = time_cuda(lambda: snv_kernel.snv_cand_words(seq_dev, n, df), 20, flush)
+    cases = {"this": lambda: snv_kernel.snv_cand_words(seq_dev, n, df)}
+    if other is not None:
+        cases["other"] = lambda: other.words(seq_dev, n, df)
+    times = snv_sweep.time_turns(cases, flush, 20)
+    ms = float(np.median(times["this"]))
     plain_ms = time_cuda(lambda: snv_kernel.snv_cand_words_plain(seq_dev, n, df), 3, flush)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"heads": n, "live_heads": live, "probes": probes, "sectors": sectors,
             "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
-            "ms_over_floor": ms / floor_ms, "differing_words": diff, "max_abs_err": err}
+            "ms_over_floor": ms / floor_ms, "differing_words": diff, "max_abs_err": err,
+            "other_ms": float(np.median(times["other"])) if other is not None else None}
 
 
 def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
@@ -1769,7 +1843,7 @@ def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int) -> dict:
     return out
 
 
-def phase_numbers(power: str) -> dict:
+def phase_numbers(power: str, against=None) -> dict:
     """The gate pass at the main path's chunk shape (2^22 heads, k=25)
     with the filters of a 50 Mbp assembly (256 MiB blocked), for the
     blocked, plain and counting layouts, and the SNV candidate pass for the
@@ -1780,14 +1854,16 @@ def phase_numbers(power: str) -> dict:
     from ntedit_tpu_torch.engine import flag
     from ntedit_tpu_torch.ops import gate_kernel
     from ntedit_tpu_torch.utils import simulate
+    from ntedit_tpu_torch.utils.other import CandWords
 
     dev = torch.device("cuda")
+    other = CandWords(against) if against else None
     k = 25
     n = flag.DEFAULT_CHUNK
     L = n + k - 1
     truth = simulate.random_genome(L + 1000, seed=31)  # indels change the length
     draft, _ = simulate.inject_errors(truth, seed=32)
-    draft = decorate(draft[:L], np.random.default_rng(33), 2, 20, 2000)
+    draft = simulate.decorate(draft[:L], np.random.default_rng(33), 2, 20, 2000)
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
     buf[:L] = torch.from_numpy(draft.copy())
     seq_dev = buf.to(dev)
@@ -1824,7 +1900,7 @@ def phase_numbers(power: str) -> dict:
         take_ms = time_cuda(lambda: torch.take(table, idx), 10, flush)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         if name != "counting":
-            snv_rows[name] = snv_cand_numbers(seq_dev, n, L, df, flush)
+            snv_rows[name] = snv_cand_numbers(seq_dev, n, L, df, flush, other)
         rows[name] = {"heads": n, "live_heads": live, "probes": probes,
                       "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms, "floor_ms": floor_ms,
                       "sectors": sectors, "bytes": nbytes, "bound_ms": bound_ms,
@@ -1846,7 +1922,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR", default=None,
-                    help="also time the one-step count and insert kernels of the checkout at DIR")
+                    help="also time the dense hashes kernel and the candidate kernel of the "
+                         "checkout at DIR (utils/other.py) in turns with this checkout's")
     against = ap.parse_args(argv).against
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1878,7 +1955,7 @@ def main(argv=None) -> int:
             main_rows.append(row)
             emit(row)
         torch.cuda.reset_peak_memory_stats()
-        snv_rows = phase_snv(work)
+        snv_rows = phase_snv(work, against)
         for row in snv_rows:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             emit(row)
@@ -1886,7 +1963,7 @@ def main(argv=None) -> int:
         build_numbers = build.pop("kernel_numbers")
         emit(build)
     torch.cuda.reset_peak_memory_stats()
-    numbers = phase_numbers(power)
+    numbers = phase_numbers(power, against)
     numbers["build"] = build_numbers
     emit(numbers)
     blk = numbers["layouts"]["blocked"]
@@ -1936,9 +2013,38 @@ def main(argv=None) -> int:
             "library_ms": None,
             "take_ms": one["take_ms"],
             "floor_ms": one["floor_ms"],
-            "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                         "plain_ms")}
+            "layouts": {layout: {key: r.get(key) for key in ("ms", "bound_ms", "floor_ms", "take_ms",
+                                                             "plain_ms", "other_ms")}
                         for layout, r in parts.items()},
+        })
+    # the binned candidate pass (blocked filter, dense groups): its kernels
+    # on the 30 Mbp contig's first group, launches from the 50 Mbp SNV run;
+    # both rows carry the bound of the candidate words they compute together
+    binned = snv_rows[0]["binned"]
+    for name, part in (("snv_cand_bin", "bin"), ("snv_cand_probe", "probe")):
+        one = binned[part]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ntedit_tpu_torch/csrc/snv_kernel.cu",
+            "replaces": "ntedit_tpu/engine/flag.py:351",
+            "launches": snv_run[f"{part}_launches"],
+            "matches_plain": kernel["bin_differing"] + binned["differing"] == 0,
+            "max_abs_err": binned["max_abs_err"],
+            "ms": one["ms"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "floor_ms": one["floor_ms"],
+            "bound_of": "the group's candidate words, both kernels together",
+            "design_bytes": one["design_bytes"],
+            "pass_share_of_bound": binned["share_of_bound"],
+            "heads": binned["heads"],
+            "entries": binned["entries"],
+            "pass_ms": binned["pass"]["path"],
+            "kernel_pass_ms": binned["pass"]["kernel"],
+            "other_pass_ms": binned["pass"].get("other"),
         })
     # the polish kernels: the site rows at the chunk shape of main_blocked's
     # and main_plain's rows-on runs, the masks at the contig shape of the
@@ -1973,20 +2079,23 @@ def main(argv=None) -> int:
     # the filter-build kernels: launches from polish --reads, times on its
     # batches at its tables (the count and insert passes: build_sweep)
     count, insert = build_numbers["count"], build_numbers["insert"]
-    hashes = build_numbers["kmer_hashes"]
+    hashes = build_numbers["kmer_valid_hashes"]
     build_ok = kernel["build_differing"] == 0  # build_numbers raised on any other difference
     for name, line, one, extra in (
-            ("kmer_hashes", 49, hashes, {}),
+            ("kmer_valid_hashes", 49, {**hashes, "ms": hashes["device_ms"]},
+             {"call_ms": hashes["hashes_ms"], "sampled_ms": hashes["device_sampled_ms"],
+              "pass_ms": hashes["pass_ms"], "other_ms": hashes.get("other_kernel_ms"),
+              "other_with_compaction_ms": hashes.get("other_hashes_ms"),
+              "other_pass_ms": hashes.get("other_pass_ms")}),
             ("kmer_partition", 293, count["partition"],
              {"slice_bits": count["slice_bits"], "scratch_bytes": count["scratch_bytes"],
               "count_ms": count["count"]["ms"], "count_bound_ms": count["count"]["bound_ms"],
-              "count_pass_ms": count["count"]["pass_ms"], "other_count_ms": count["count"]["other_ms"],
-              "other_count_pass_ms": count["count"]["other_pass_ms"]}),
+              "count_pass_ms": count["count"]["pass_ms"]}),
             ("kmer_count_apply", 293, count["apply"], {"floor_table_ms": count["apply"]["floor_table_ms"]}),
             ("kmer_solid_bits", 319, insert["solid_bits"], {}),
             ("kmer_insert", 319, insert["insert"],
              {"pass_ms": insert["pass"]["ms"], "pass_ms_per_batch": insert["pass"]["ms_per_batch"],
-              "pass_bound_ms": insert["pass"]["bound_ms"], "other_pass_ms": insert["pass"]["other_ms"],
+              "pass_bound_ms": insert["pass"]["bound_ms"],
               "floor_counters_ms": insert["insert"]["floor_counters_ms"]})):
         lines.append({
             "name": name,
@@ -1995,7 +2104,7 @@ def main(argv=None) -> int:
             "replaces": f"ntedit_tpu/core/bfbuild.py:{line}",
             "launches": build["polish_reads"]["launches"][name],
             "matches_plain": build_ok,
-            "max_abs_err": {"kmer_hashes": hashes, "kmer_partition": count,
+            "max_abs_err": {"kmer_valid_hashes": hashes, "kmer_partition": count,
                             "kmer_count_apply": count}.get(name, insert)["differing"],
             "ms": one["ms"],
             "plain_ms": one["plain_ms"],

@@ -19,11 +19,13 @@ The records are read on the host and joined with a 0x00 separator into
 batches of at most ``batch`` bytes, uploaded as ASCII; consecutive pieces
 of a long buffer overlap by exactly k - 1 bytes, so every window is seen
 once.  Each pass over a batch runs the kernels of ops/build_kernel.py:
-the canonical hashes for the histogram; the count-min increments, binned
-by slice of the counter table and then applied slice by slice; the
-threshold insertion, which reads solid bits packed once per pass from
-the counters.  The histogram's unique-count and the sampling are torch
-ops on the device.  ``device="cpu"`` runs the kernels' plain
+the canonical hashes of the valid windows for the histogram, compacted
+on the card and sampled there once the histogram samples; the count-min
+increments, binned by slice of the counter table and then applied slice
+by slice; the threshold insertion, which reads solid bits packed once
+per pass from the counters.  The histogram's unique-count, and the
+sampling of the batches kept before the slice rose, are torch ops on the
+device.  ``device="cpu"`` runs the kernels' plain
 versions on the CPU.  Only valid windows (all k bytes ACGTacgt) count.
 
 Filters, histograms and their files equal the JAX package's for the same
@@ -42,7 +44,6 @@ import numpy as np
 import torch
 
 from ntedit_tpu_torch.core import bloom
-from ntedit_tpu_torch.core import nthash as nt
 from ntedit_tpu_torch.engine.polish import resolve_device
 from ntedit_tpu_torch.io import fastx
 from ntedit_tpu_torch.ops import build_kernel
@@ -113,27 +114,6 @@ def device_batches(paths: Sequence[str], k: int, device, batch: int = BATCH) -> 
 # histogram (ntCard role)
 # ---------------------------------------------------------------------------
 
-_MIX1 = nt._signed(0x9E3779B97F4A7C15)
-_MIX2 = nt._signed(0xBF58476D1CE4E5B9)
-
-
-def _sample_key(h: torch.Tensor) -> torch.Tensor:
-    """Avalanche mix (splitmix64's finalizer) for hash-slice sampling: the
-    canonical hash behaves like a minimum of two uniforms, so slicing on
-    its raw top bits would over-sample; a bijective mixer keeps
-    distinctness.  uint64 arithmetic on int64 bits (multiplies wrap, shifts
-    are logical)."""
-    x = h * _MIX1
-    x = x ^ nt.shr(x, 29)
-    x = x * _MIX2
-    return x ^ nt.shr(x, 32)
-
-
-def _in_slice(h: torch.Tensor, s: int) -> torch.Tensor:
-    """bool: the hashes whose mixed key has its top ``s`` bits clear."""
-    return nt.shr(_sample_key(h), 64 - s) == 0
-
-
 @dataclasses.dataclass
 class Histogram:
     k: int
@@ -177,45 +157,74 @@ class Histogram:
         return cls(k=k, f1=f1, f0=f0, spectrum=spec)
 
 
+class SampledHashes:
+    """The histogram's kept hashes, batch by batch: exact until more than
+    ``budget`` are kept, then ntCard-style hash sampling keeps those in a
+    2^-s slice (``build_kernel.in_slice``), s rising one step at a time (each halving
+    what is kept) until the kept ones fit.  The final s is the smallest
+    whose kept count fits the budget, so it does not depend on the order
+    of the hashes.  A batch given as a view into a buffer more than twice
+    its size (the hashes kernel returns one, of a buffer of a hash per
+    window) is kept as a copy, so the kept batches hold at most twice the
+    bytes of their hashes, whatever s."""
+
+    def __init__(self, budget: int):
+        self.budget = budget
+        self.s = 0
+        self.total = 0  # valid windows seen (F1)
+        self.kept: list = []
+        self.kept_n = 0
+
+    def add(self, h: torch.Tensor, total: int, s: int = 0) -> None:
+        """A batch of ``total`` valid windows, given by the hashes of those
+        in slice ``s`` (at most the current slice)."""
+        self.total += total
+        if self.s > s:
+            h = h[build_kernel.in_slice(h, self.s)]
+        elif h.untyped_storage().nbytes() > 2 * h.numel() * h.element_size():
+            h = h.clone()
+        self.kept.append(h)
+        self.kept_n += h.numel()
+        while self.kept_n > self.budget:
+            self.s += 1
+            self.kept = [a[build_kernel.in_slice(a, self.s)] for a in self.kept]
+            self.kept_n = sum(a.numel() for a in self.kept)
+
+    def histogram(self, k: int, max_count: int = 255) -> "Histogram":
+        """The unique-count and the spectrum, run where the hashes lie."""
+        sampled = torch.cat(self.kept) if self.kept else torch.zeros(0, dtype=torch.int64)
+        self.kept = []
+        uniq, counts = torch.unique(sampled, return_counts=True)
+        scale = 1 << self.s
+        spec = torch.bincount(counts.clamp(max=max_count), minlength=max_count + 1)
+        spectrum = spec.cpu().numpy().astype(np.int64) * scale
+        spectrum[0] = 0
+        return Histogram(k=k, f1=self.total, f0=int(uniq.numel()) * scale, spectrum=spectrum)
+
+
 def histogram_of(hashes: Iterable[torch.Tensor], k: int, max_count: int = 255,
                  sample_budget: int = 1 << 26) -> Histogram:
     """The histogram of the canonical hashes of every valid window, given
     in batches; the sampling, the unique-count and the spectrum run where
     the hashes lie."""
-    s = 0
-    total = 0
-    kept: list = []
-    kept_n = 0
+    kept = SampledHashes(sample_budget)
     for h in hashes:
-        total += h.numel()
-        if s:
-            h = h[_in_slice(h, s)]
-        kept.append(h)
-        kept_n += h.numel()
-        while kept_n > sample_budget:
-            s += 1
-            kept = [a[_in_slice(a, s)] for a in kept]
-            kept_n = sum(a.numel() for a in kept)
-    if kept:
-        sampled = torch.cat(kept)
-    else:
-        sampled = torch.zeros(0, dtype=torch.int64)
-    del kept
-    uniq, counts = torch.unique(sampled, return_counts=True)
-    scale = 1 << s
-    spec = torch.bincount(counts.clamp(max=max_count), minlength=max_count + 1)
-    spectrum = spec.cpu().numpy().astype(np.int64) * scale
-    spectrum[0] = 0
-    return Histogram(k=k, f1=total, f0=int(uniq.numel()) * scale, spectrum=spectrum)
+        kept.add(h, h.numel())
+    return kept.histogram(k, max_count)
 
 
 def count_histogram(paths: Sequence[str], k: int, max_count: int = 255,
                     sample_budget: int = 1 << 26, device=None, batch: int = BATCH) -> Histogram:
     """Stream the reads through the hashes kernel and build the k-mer
-    multiplicity histogram on ``device`` (the card by default)."""
+    multiplicity histogram on ``device`` (the card by default).  Each
+    batch's kernel emits only the hashes of the current sample slice and
+    counts every valid window beside them."""
     dev = resolve_device(device)
-    hashes = (build_kernel.valid_hashes(seq, n, k) for seq, n in device_batches(paths, k, dev, batch))
-    return histogram_of(hashes, k, max_count, sample_budget)
+    kept = SampledHashes(sample_budget)
+    for seq, n in device_batches(paths, k, dev, batch):
+        s = kept.s
+        kept.add(*build_kernel.kmer_valid_hashes(seq, n, k, s), s)
+    return kept.histogram(k, max_count)
 
 
 def solid_cutoff(hist: Histogram) -> int:

@@ -14,8 +14,24 @@
 // For a valid window with canonical ntHash2 value can, hash j is
 // h_0 = can, h_j = extended(can, j ^ (k * MULTISEED)) (NTM64, _mix_pair).
 //
-// kmer_hashes_kernel writes can for every window (0 for an invalid one)
-// and a validity word per 32 windows, little-endian as the gate words.
+// The histogram's pass writes, per batch, the canonical hashes of the
+// valid windows, compacted and in window order (ntedit_tpu/core/bfbuild.py
+// valid_canonical_hashes), and with a sample slice s > 0 only those whose
+// mixed key (splitmix64's finalizer, ops/build_kernel.py sample_key) has
+// its top s bits clear, beside the count of all valid windows (F1):
+//
+//   kmer_valid_count_kernel<kSample> counts each block's emitted windows and
+//       its valid windows (validity alone when s = 0, no hashing);
+//   the wrapper's torch.cumsum of the emitted counts gives each block its
+//       offset (the wrapper reads the totals only after the emit form, to
+//       size the view it returns, so the card does not wait between forms);
+//   kmer_valid_hashes_kernel hashes the block's tile again, each thread
+//       staging its emitted hashes in its own 32 slots of shared memory
+//       (slot (r + t) & 31 for its r-th, so that the lanes of a warp store
+//       and load on distinct banks), and each warp then writes its lanes'
+//       runs one after the other, consecutive lanes on consecutive
+//       addresses: a warp's store covers 256 contiguous bytes, where the
+//       dense kernel this replaces stored 8 B at a 256-B stride per lane.
 //
 // The count pass adds one, saturating at 255, to counter h_j mod slots for
 // every valid window and every j < hash_num (btllib's counting filter; two
@@ -78,7 +94,9 @@
 // sorted and scanned its scatter because XLA has no scatter-OR.  The
 // atomics' results are unused, so they compile to fire-and-forget RED.
 //
-// Bound.  The hashes pass streams: 1 B of ASCII in and 8 B per window out.
+// Bound.  The hashes pass streams: 1 B of ASCII in and 8 B per emitted
+// window out; it hashes every window once (twice with s > 0), and the
+// rolling hash's 64-bit arithmetic costs about as much as those bytes.
 // The count and insert passes make one random access per (window, j); what
 // bounds them is the rate at which the memory serves random sectors, not
 // bytes per second, and the design moves those accesses from DRAM to L2.
@@ -181,23 +199,132 @@ __device__ __forceinline__ int thread_heads(uint64_t n, uint64_t n_words, uint64
 	return left < kHeads ? (int)left : kHeads;
 }
 
+// The ok bits of a thread's windows (all k bytes ACGTacgt), without hashing.
+__device__ __forceinline__ uint32_t valid_bits(const Tables& tb, const uint8_t* row, int k, int heads)
+{
+	int bad = 0;
+	for (int i = 0; i < k; ++i)
+		bad += tb.cls[tile_byte(row, i)] != 0;
+	uint32_t bits = bad == 0;
+	for (int j = 1; j < heads; ++j) {
+		bad += (int)(tb.cls[tile_byte(row, j - 1 + k)] != 0) - (int)(tb.cls[row[j - 1]] != 0);
+		bits |= (uint32_t)(bad == 0) << j;
+	}
+	return bits;
+}
+
+// Whether a hash lies in the histogram's sample slice s (s = 0: every
+// hash): the top s bits of its mixed key are clear.  uint64 arithmetic:
+// the multiplies wrap and the shifts are logical.  0 <= s <= 64.
+__device__ __forceinline__ bool in_sample(uint64_t h, int s)
+{
+	if (s == 0)
+		return true;
+	uint64_t x = h * 0x9E3779B97F4A7C15ULL;
+	x ^= x >> 29;
+	x *= 0xBF58476D1CE4E5B9ULL;
+	x ^= x >> 32;
+	return (x >> (64 - s)) == 0;
+}
+
+// The sum of v over the block, in thread 0; every thread calls it.
+__device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* warp_sum, unsigned t)
+{
+#pragma unroll
+	for (int d = 16; d > 0; d >>= 1)
+		v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+	if ((t & 31) == 0)
+		warp_sum[t >> 5] = v;
+	__syncthreads();
+	uint32_t sum = 0;
+	if (t == 0)
+		for (int w = 0; w < kThreads / 32; ++w)
+			sum += warp_sum[w];
+	return sum;
+}
+
+// The count form: block b's emitted windows (valid, in sample slice s)
+// into counts[b] and its valid windows into counts[gridDim.x + b].
+template <bool kSample>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-kmer_hashes_kernel(const uint8_t* __restrict__ seq, uint64_t n, int k, uint64_t* __restrict__ hashes,
-                   uint32_t* __restrict__ valid, uint64_t n_words)
+kmer_valid_count_kernel(const uint8_t* __restrict__ seq, uint64_t n, int k, int s,
+                        int32_t* __restrict__ counts, uint64_t n_words)
 {
 	__shared__ __align__(16) uint8_t tile[kRows * kRowStride];
 	__shared__ Tables tb;
-	prologue(tb, tile, seq, k, threadIdx.x);
+	__shared__ uint32_t warp_sum[2][kThreads / 32];
+	const unsigned t = threadIdx.x;
+	prologue(tb, tile, seq, k, t);
+	uint64_t word;
+	const int heads = thread_heads(n, n_words, word);  // -1: no windows, but the barriers
+	const uint8_t* row = tile + t * kRowStride;
+	uint32_t valid = 0, emit = 0;
+	if (heads > 0) {
+		if (kSample)
+			valid = each_window(tb, row, k, heads, [&](int j, uint64_t can, bool ok) {
+				emit |= (uint32_t)(ok && in_sample(can, s)) << j;
+			});
+		else
+			valid = emit = valid_bits(tb, row, k, heads);
+	}
+	const uint32_t e = block_sum(__popc(emit), warp_sum[0], t);
+	const uint32_t v = block_sum(__popc(valid), warp_sum[1], t);
+	if (t == 0) {
+		counts[blockIdx.x] = (int32_t)e;
+		counts[gridDim.x + blockIdx.x] = (int32_t)v;
+	}
+}
+
+constexpr int kStageBytes = kTile * 8;  // the emit form's dynamic shared memory
+
+// The emit form: the canonical hashes of block b's windows that are valid
+// and in sample slice s, in window order, at out[ends[b] - (its count)]
+// (``ends`` the inclusive scan of the count form's counts[0, blocks)).
+__global__ void __launch_bounds__(kThreads, 2)
+kmer_valid_hashes_kernel(const uint8_t* __restrict__ seq, uint64_t n, int k, int s,
+                         const int64_t* __restrict__ ends, uint64_t* __restrict__ out,
+                         uint64_t n_words)
+{
+	extern __shared__ __align__(16) uint64_t stage[];  // kTile: thread t's in [32 t, 32 t + 32)
+	__shared__ __align__(16) uint8_t tile[kRows * kRowStride];
+	__shared__ Tables tb;
+	__shared__ uint32_t warp_sum[kThreads / 32];
+	const unsigned t = threadIdx.x, lane = t & 31, w = t >> 5;
+	prologue(tb, tile, seq, k, t);
 	uint64_t word;
 	const int heads = thread_heads(n, n_words, word);
-	if (heads < 0)
-		return;
-	uint64_t* out = hashes + word * kHeads;
-	const uint8_t* row = tile + threadIdx.x * kRowStride;
-	const uint32_t bits = each_window(tb, row, k, heads, [&](int j, uint64_t can, bool ok) {
-		out[j] = ok ? can : 0;
-	});
-	valid[word] = bits;
+	const uint8_t* row = tile + t * kRowStride;
+	uint64_t* mine = stage + t * kHeads;
+	uint32_t c = 0;  // the thread's emitted windows
+	if (heads > 0)
+		each_window(tb, row, k, heads, [&](int, uint64_t can, bool ok) {
+			if (ok && in_sample(can, s)) {
+				mine[(c + t) & 31] = can;  // swizzled: the warp's lanes on distinct banks
+				++c;
+			}
+		});
+	uint32_t x = c;  // inclusive scan over the warp
+#pragma unroll
+	for (int d = 1; d < 32; d <<= 1) {
+		const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+		if (lane >= (unsigned)d)
+			x += y;
+	}
+	if (lane == 31)
+		warp_sum[w] = x;
+	__syncthreads();
+	uint64_t base = blockIdx.x ? (uint64_t)ends[blockIdx.x - 1] : 0;
+	for (unsigned v = 0; v < w; ++v)
+		base += warp_sum[v];
+	const uint32_t before = x - c;
+	// the warp writes its lanes' runs in lane order: lane l takes element l
+	for (int src = 0; src < 32; ++src) {
+		const uint32_t cs = __shfl_sync(0xFFFFFFFFu, c, src);
+		const uint32_t at = __shfl_sync(0xFFFFFFFFu, before, src);
+		const unsigned ts = (w << 5) + src;
+		if (lane < cs)
+			out[base + at + lane] = stage[ts * kHeads + ((lane + ts) & 31)];
+	}
 }
 
 // Windows a thread takes per round of the partition at ``hash_num``: a
@@ -518,6 +645,17 @@ atomic_floor_kernel(uint32_t* __restrict__ table, uint64_t size, uint64_t magic,
 
 bool args_ok(uint64_t n, int k) { return n > 0 && k >= 1 && k <= kHalo + 1; }
 
+bool sample_ok(int s) { return s >= 0 && s <= 64; }
+
+// Lets the emit form take its stage (above the 48 KB of static shared
+// memory); once per process.  cudaSuccess or the error.
+int emit_smem_ok()
+{
+	static const cudaError_t err = cudaFuncSetAttribute(
+	    kmer_valid_hashes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
+	return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -527,18 +665,44 @@ extern "C" {
 // point launches on ``stream`` and returns cudaGetLastError() after each
 // launch (0 on success).
 
-// Canonical hash of windows [0, n) into ``hashes`` (n uint64, 0 where
-// invalid) and their validity into ``valid`` (ceil(n / 32) words).
-int ntb_kmer_hashes(const void* seq, uint64_t n, int k, void* hashes, void* valid, void* stream)
+// The count form of the histogram's hashes over windows [0, n), in
+// ceil(n / 8192) blocks: ``counts`` (int32, 2 per block) gets each block's
+// windows that are valid and in sample slice ``s`` (0: all valid), then
+// each block's valid windows.
+int ntb_kmer_valid_count(const void* seq, uint64_t n, int k, int s, void* counts, void* stream)
 {
 	if (n == 0)
 		return 0;
-	if (!args_ok(n, k))
+	if (!args_ok(n, k) || !sample_ok(s))
 		return (int)cudaErrorInvalidValue;
 	const uint64_t n_words = (n + kHeads - 1) / kHeads;
-	kmer_hashes_kernel<<<blocks_for(n_words), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-	    static_cast<const uint8_t*>(seq), n, k, static_cast<uint64_t*>(hashes),
-	    static_cast<uint32_t*>(valid), n_words);
+	const auto* q = static_cast<const uint8_t*>(seq);
+	auto* c = static_cast<int32_t*>(counts);
+	auto st = static_cast<cudaStream_t>(stream);
+	if (s)
+		kmer_valid_count_kernel<true><<<blocks_for(n_words), kThreads, 0, st>>>(q, n, k, s, c, n_words);
+	else
+		kmer_valid_count_kernel<false><<<blocks_for(n_words), kThreads, 0, st>>>(q, n, k, s, c, n_words);
+	return (int)cudaGetLastError();
+}
+
+// The emit form: the hashes the count form counted, in window order, into
+// ``out`` (uint64); ``ends`` (int64, one per block) is the inclusive scan
+// of the count form's first half.
+int ntb_kmer_valid_hashes(const void* seq, uint64_t n, int k, int s, const void* ends, void* out,
+                          void* stream)
+{
+	if (n == 0)
+		return 0;
+	if (!args_ok(n, k) || !sample_ok(s))
+		return (int)cudaErrorInvalidValue;
+	if (const int err = emit_smem_ok())
+		return err;
+	const uint64_t n_words = (n + kHeads - 1) / kHeads;
+	kmer_valid_hashes_kernel<<<blocks_for(n_words), kThreads, kStageBytes,
+	                           static_cast<cudaStream_t>(stream)>>>(
+	    static_cast<const uint8_t*>(seq), n, k, s, static_cast<const int64_t*>(ends),
+	    static_cast<uint64_t*>(out), n_words);
 	return (int)cudaGetLastError();
 }
 
@@ -674,15 +838,21 @@ int ntb_atomic_floor(void* table, uint64_t size, uint64_t magic, uint64_t ops, u
 	return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM: which = 0 hashes, 1 partition count, 2 partition
-// scatter, 3 apply, 4 solid bits, 5 insert plain, 6 insert blocked, 7 the
-// atomic floor.  Negative on error.
+// Resident blocks per SM: which = 0 hashes emit form, 1 partition count,
+// 2 partition scatter, 3 apply, 4 solid bits, 5 insert plain, 6 insert
+// blocked, 7 the atomic floor, 8 and 9 the hashes count form without and
+// with sampling.  Negative on error.
 int ntb_occupancy(int which)
 {
 	int blocks = 0;
 	cudaError_t err = cudaErrorInvalidValue;
 	switch (which) {
-	case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_hashes_kernel, kThreads, 0); break;
+	case 0:
+		err = static_cast<cudaError_t>(emit_smem_ok());
+		if (err == cudaSuccess)
+			err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_valid_hashes_kernel, kThreads,
+			                                                    kStageBytes);
+		break;
 	case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_partition_kernel<false>, kThreads, 0); break;
 	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_partition_kernel<true>, kThreads, 0); break;
 	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_count_apply_kernel, kThreads, 0); break;
@@ -690,6 +860,8 @@ int ntb_occupancy(int which)
 	case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_insert_kernel<kPlain>, kThreads, 0); break;
 	case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_insert_kernel<kBlocked>, kThreads, 0); break;
 	case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, atomic_floor_kernel, kThreads, 0); break;
+	case 8: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_valid_count_kernel<false>, kThreads, 0); break;
+	case 9: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kmer_valid_count_kernel<true>, kThreads, 0); break;
 	}
 	return err == cudaSuccess ? blocks : -(int)err;
 }

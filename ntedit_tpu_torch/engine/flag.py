@@ -31,6 +31,10 @@ from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
 # heads per streamed chunk (a multiple of the kernel's 8192-head tile)
 DEFAULT_CHUNK = 1 << 22
+# bytes of entries the binned SNV candidate pass keeps at a time: it bins
+# the probes of as many whole chunks as fit (7 chunks of 2^22 heads), so
+# each filter slice is probed by many chunks' heads while it sits in L2
+BIN_BUDGET = 1 << 30
 
 
 def _effective_chunk(n: int, chunk: int) -> int:
@@ -201,22 +205,65 @@ def positions_on_device(words: torch.Tensor) -> torch.Tensor:
     return nz[rows] * 32 + cols
 
 
-def _snv_candidates(seq: np.ndarray, df, chunk: int) -> tuple:
+def _snv_candidates(seq: np.ndarray, df, chunk: int, bins=None) -> tuple:
     """(contig on the device, its sorted candidate heads on the device,
-    staging buffer): one upload, one candidate kernel per chunk, and the
-    candidate words compacted to positions with torch ops, so that only the
-    positions travel back.  On CUDA the work is queued on the current
-    stream, which the compaction waits for; the staging buffer must outlive
-    the upload."""
+    staging buffer): one upload, the candidate words (snv_candidate_words,
+    with ``bins``), and the words compacted to positions with torch ops, so
+    that only the positions travel back.  On CUDA the work is queued on
+    the current stream, which the compaction waits for; the staging buffer
+    must outlive the upload."""
     n = len(seq) - df.k + 1
-    chunk = _effective_chunk(n, chunk)
     cuda = df.device.type == "cuda"
     staged = _staged(seq, gate_kernel.padded_len(n), pin=cuda)
     dev_seq = torch.empty(staged.numel(), dtype=torch.uint8, device=df.device)
     dev_seq.copy_(staged, non_blocking=cuda)
-    words = [snv_kernel.snv_cand_words(dev_seq[start:], min(chunk, n - start), df)
-             for start in range(0, n, chunk)]
-    return dev_seq, positions_on_device(torch.cat(words)), staged
+    words = snv_candidate_words(dev_seq, n, df, chunk, bins)
+    return dev_seq, positions_on_device(words), staged
+
+
+def _group(chunk: int) -> int:
+    """Heads of a group: as many whole chunks as BIN_BUDGET holds."""
+    return chunk * max(1, BIN_BUDGET // (3 * snv_kernel.ENTRY_BYTES * chunk))
+
+
+def cand_bins(df, chunk: int = DEFAULT_CHUNK) -> Optional["snv_kernel.CandBins"]:
+    """Scratch for the binned pass of snv_candidate_words on the card,
+    sized for a whole group of chunks, to be reused contig after contig by
+    one caller at a time; None off the card (each call then allocates what
+    its contig needs) and where no group is binned (a filter that the
+    densest group would not cover: ``snv_kernel.binned``)."""
+    group = _group(chunk)  # no contig's group is larger
+    if df.device.type != "cuda" or not snv_kernel.binned(df, group):
+        return None
+    return snv_kernel.CandBins(df.modulus, group, df.device)
+
+
+def snv_candidate_words(dev_seq: torch.Tensor, n: int, df, chunk: int = DEFAULT_CHUNK,
+                        bins: Optional["snv_kernel.CandBins"] = None) -> torch.Tensor:
+    """The candidate words of heads [0, n) of a contig laid out on the
+    device as the kernels read it (``gate_kernel.padded_len(n)`` bytes), in
+    groups of as many chunks as BIN_BUDGET holds: where
+    ``snv_kernel.binned`` says so (a blocked filter whose sectors the
+    group's probes cover densely), the binned pass, the group's probes
+    binned by filter slice and probed slice by slice; elsewhere one
+    candidate kernel per chunk.  The binned pass uses ``bins`` (cand_bins;
+    the caller's scratch, free of other work) or allocates its own."""
+    chunk = _effective_chunk(n, chunk)
+    group = _group(chunk)
+    parts = []
+    for start in range(0, n, group):
+        m = min(group, n - start)
+        if not snv_kernel.binned(df, m):
+            parts += [snv_kernel.snv_cand_words(dev_seq[c:], min(chunk, n - c), df)
+                      for c in range(start, start + m, chunk)]
+            continue
+        if bins is None:
+            bins = snv_kernel.CandBins(df.modulus, min(group, n), df.device)
+        out = torch.empty(-(-m // 32), dtype=torch.int32, device=df.device)
+        snv_kernel.snv_cand_bin(dev_seq[start:], m, df, bins, out)
+        snv_kernel.snv_cand_probe(bins, df, out)
+        parts.append(out)
+    return torch.cat(parts)
 
 
 def _on_stream(df, stream):
@@ -232,15 +279,17 @@ def snv_candidate_positions(
     df,
     chunk: int = DEFAULT_CHUNK,
     stream: Optional["torch.cuda.Stream"] = None,
+    bins: Optional["snv_kernel.CandBins"] = None,
 ) -> np.ndarray:
     """Sorted SNV candidate heads of one contig: the heads where the engine
     can produce a record or an edit (see ops/snv_kernel.py); every other
     head is a no-op in SNV mode, so this is an exact hint.  Needs a blocked
-    or plain filter (Polisher._snv_fast_eligible)."""
+    or plain filter (Polisher._snv_fast_eligible).  ``bins``: the binned
+    pass's scratch (cand_bins), if the caller keeps one."""
     if len(seq) < df.k:
         return np.zeros(0, dtype=np.int64)
     with _on_stream(df, stream):
-        _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk)
+        _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
         return cand.cpu().numpy()
 
 
@@ -275,15 +324,17 @@ def snv_site_data(
     jump: int,
     chunk: int = DEFAULT_CHUNK,
     stream: Optional["torch.cuda.Stream"] = None,
+    bins: Optional["snv_kernel.CandBins"] = None,
 ) -> tuple:
     """(candidate heads int64 [G], site rows uint8 [G, 6]), parallel
-    arrays: the candidates of snv_candidate_positions and, for each, the
-    row the engine consumes instead of probing (ops/snv_kernel.py), from
-    one site kernel over the contig's candidates."""
+    arrays: the candidates of snv_candidate_positions (``bins`` as there)
+    and, for each, the row the engine consumes instead of probing
+    (ops/snv_kernel.py), from one site kernel over the contig's
+    candidates."""
     n = len(seq) - df.k + 1
     if n <= 0:
         return np.zeros(0, dtype=np.int64), np.zeros((0, 6), dtype=np.uint8)
     with _on_stream(df, stream):
-        dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk)
+        dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
         rows = snv_kernel.snv_site_rows(dev_seq, n, cand, df, jump)
         return cand.cpu().numpy(), rows.cpu().numpy()

@@ -33,6 +33,7 @@ The rows and the masks change no output byte, only where the probes run.
 from __future__ import annotations
 
 import dataclasses
+import queue
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, Optional, Tuple
@@ -105,6 +106,9 @@ class Polisher:
         self.site_rows = self.cfg.snv if site_rows is None else site_rows
         self.cand_masks = cand_masks
         self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
+        # the binned SNV candidate pass's scratch (flag.cand_bins): one for
+        # each contig in flight, taken by a call and given back after it
+        self._cand_bins = queue.SimpleQueue()
 
     def gate_positions(self, seq: np.ndarray) -> np.ndarray:
         """One-shot dense gate pass over a whole contig."""
@@ -137,11 +141,17 @@ class Polisher:
         rows = None
         res = None
         if self._snv_fast_eligible():
+            try:
+                bins = self._cand_bins.get_nowait()
+            except queue.Empty:
+                bins = flag.cand_bins(self.df, self.chunk)
             if self.site_rows:
                 hint, rows = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
-                                                stream=stream)
+                                                stream=stream, bins=bins)
             else:
-                hint = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk, stream=stream)
+                hint = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
+                                                    stream=stream, bins=bins)
+            self._cand_bins.put(bins)  # the candidates are on the host: the bins are free
             if self.cfg.threads > 1:
                 res = native_repair.polish_contig_segmented(
                     self.bloom, None, self.cfg, header, seq, hint,

@@ -6,9 +6,11 @@ ACGTacgt; only valid windows count.  For a valid window with canonical
 ntHash2 value ``can``, hash j is ``can`` for j = 0 and NTM64's extension
 of it otherwise (``nthash.extend``).
 
-* ``kmer_hashes(seq, n, k)`` -> (int64 [n] canonical hashes, 0 where
-  invalid; int32 [ceil(n/32)] validity words, little-endian like the gate
-  words).  ``valid_hashes`` compacts them.
+* ``kmer_valid_hashes(seq, n, k, s)`` -> (int64 [v] the canonical hashes
+  of the valid windows in window order, the number of valid windows):
+  with ``s`` > 0 only the hashes in the histogram's sample slice s
+  (``in_slice``), all valid windows counted.  ``valid_hashes(seq, n, k)``
+  is its first element at s = 0.
 * ``kmer_count(seq, n, k, hash_num, counters, slots, bins)`` adds one,
   saturating at 255, to counter ``h_j mod slots`` of the uint8 table
   ``counters``, for every valid window and every j < hash_num (btllib's
@@ -156,7 +158,10 @@ class Bins:
 # ---------------------------------------------------------------------------
 
 def kmer_hashes_plain(seq: torch.Tensor, n: int, k: int) -> tuple:
-    """The hashes pass in plain torch int64, on any device."""
+    """(int64 [n] canonical hashes, 0 where invalid; int32 [ceil(n/32)]
+    validity words, little-endian like the gate words) of windows [0, n),
+    in plain torch int64, on any device: the reference the plain versions
+    build on."""
     if n <= 0:
         return (torch.zeros(0, dtype=torch.int64, device=seq.device),
                 torch.zeros(0, dtype=torch.int32, device=seq.device))
@@ -195,6 +200,34 @@ def valid_hashes_plain(seq: torch.Tensor, n: int, k: int) -> torch.Tensor:
     the plain version."""
     can, words = kmer_hashes_plain(seq, n, k)
     return can[unpack_bits(words, n)]
+
+
+_MIX1 = nt._signed(0x9E3779B97F4A7C15)
+_MIX2 = nt._signed(0xBF58476D1CE4E5B9)
+
+
+def sample_key(h: torch.Tensor) -> torch.Tensor:
+    """Avalanche mix (splitmix64's finalizer) for the histogram's hash-slice
+    sampling: the canonical hash behaves like a minimum of two uniforms, so
+    slicing on its raw top bits would over-sample; a bijective mixer keeps
+    distinctness.  uint64 arithmetic on int64 bits (multiplies wrap, shifts
+    are logical)."""
+    x = h * _MIX1
+    x = x ^ nt.shr(x, 29)
+    x = x * _MIX2
+    return x ^ nt.shr(x, 32)
+
+
+def in_slice(h: torch.Tensor, s: int) -> torch.Tensor:
+    """bool: the hashes whose mixed key has its top ``s`` bits clear."""
+    return nt.shr(sample_key(h), 64 - s) == 0
+
+
+def kmer_valid_hashes_plain(seq: torch.Tensor, n: int, k: int, s: int = 0) -> tuple:
+    """The histogram's hashes pass in plain torch, on any device."""
+    _check_sample(s)
+    h = valid_hashes_plain(seq, n, k)
+    return (h[in_slice(h, s)] if s else h), int(h.numel())
 
 
 def kmer_partition_plain(seq: torch.Tensor, n: int, k: int, bins: Bins) -> None:
@@ -347,8 +380,11 @@ def open_library(path: str):
     differ from the wrapper's."""
     lib = ctypes.CDLL(path)
     ptr, u64, i32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
-    lib.ntb_kmer_hashes.restype = i32
-    lib.ntb_kmer_hashes.argtypes = [ptr, u64, i32, ptr, ptr, ptr]  # seq, n, k, hashes, valid, stream
+    lib.ntb_kmer_valid_count.restype = i32
+    lib.ntb_kmer_valid_count.argtypes = [ptr, u64, i32, i32, ptr, ptr]  # seq, n, k, s, counts, stream
+    lib.ntb_kmer_valid_hashes.restype = i32
+    lib.ntb_kmer_valid_hashes.argtypes = [ptr, u64, i32, i32,       # seq, n, k, s
+                                          ptr, ptr, ptr]            # ends, out, stream
     lib.ntb_kmer_partition.restype = i32
     lib.ntb_kmer_partition.argtypes = [ptr, u64, i32, i32,          # seq, n, k, hash_num
                                        u64, u64, i32, i32,          # slots, magic, slice_bits, slices
@@ -431,27 +467,51 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def kmer_hashes(seq: torch.Tensor, n: int, k: int) -> tuple:
-    """(hashes, validity words) of windows [0, n) of ``seq`` (see the module
-    docstring).  On CUDA, ``seq`` holds ``padded_len(n)`` bytes from a
-    16-byte aligned start."""
+def _check_sample(s: int) -> None:
+    if not 0 <= s <= 64:
+        raise ValueError(f"the sample slice takes 0 <= s <= 64, got {s}")
+
+
+def _valid_hashes_forms(lib, seq: torch.Tensor, n: int, k: int, s: int) -> tuple:
+    """Queue the hashes kernel's two forms and the scan between them on the
+    current stream: (rc, the output buffer of n hashes, its per-block
+    counts, their scan)."""
+    blocks = -(-n // TILE)
+    counts = torch.empty(2 * blocks, dtype=torch.int32, device=seq.device)
+    out = torch.empty(n, dtype=torch.int64, device=seq.device)
+    stream = _stream(seq)
+    rc = lib.ntb_kmer_valid_count(seq.data_ptr(), n, k, s, counts.data_ptr(), stream)
+    ends = None
+    if rc == 0:
+        ends = torch.cumsum(counts[:blocks], 0, dtype=torch.int64)
+        rc = lib.ntb_kmer_valid_hashes(seq.data_ptr(), n, k, s, ends.data_ptr(), out.data_ptr(),
+                                       stream)
+    return rc, out, counts, ends
+
+
+def kmer_valid_hashes(seq: torch.Tensor, n: int, k: int, s: int = 0) -> tuple:
+    """(hashes, valid windows) of windows [0, n) of ``seq`` (see the module
+    docstring): the kernel's counting form, the scan of its per-block
+    counts (torch.cumsum), its emitting form into a buffer of n hashes,
+    then one small read of the totals (a synchronisation) that sizes the
+    returned view.  One call is one launch (its two forms).  On CUDA,
+    ``seq`` holds ``padded_len(n)`` bytes from a 16-byte aligned start."""
+    _check_sample(s)
     if seq.device.type == "cpu":
-        return kmer_hashes_plain(seq, n, k)
+        return kmer_valid_hashes_plain(seq, n, k, s)
     lib = load_library()
     _check_seq(seq, n, k)
-    hashes = torch.empty(max(0, n), dtype=torch.int64, device=seq.device)
-    valid = torch.empty(max(0, -(-n // 32)), dtype=torch.int32, device=seq.device)
     if n <= 0:
-        return hashes, valid
-    rc = lib.ntb_kmer_hashes(seq.data_ptr(), n, k, hashes.data_ptr(), valid.data_ptr(), _stream(seq))
-    _launched(lib, rc, kmer_hashes, "k-mer hashes")
-    return hashes, valid
+        return torch.empty(0, dtype=torch.int64, device=seq.device), 0
+    rc, out, counts, ends = _valid_hashes_forms(lib, seq, n, k, s)
+    _launched(lib, rc, kmer_valid_hashes, "k-mer hashes")
+    emitted, valid = torch.stack([ends[-1], counts[ends.numel():].sum(dtype=torch.int64)]).tolist()
+    return out[:emitted], valid
 
 
 def valid_hashes(seq: torch.Tensor, n: int, k: int) -> torch.Tensor:
     """int64 [v]: the canonical hashes of the valid windows, in order."""
-    hashes, words = kmer_hashes(seq, n, k)
-    return hashes[unpack_bits(words, n)]
+    return kmer_valid_hashes(seq, n, k)[0]
 
 
 def _check_counters(counters: torch.Tensor, slots: int, device) -> None:
@@ -605,16 +665,17 @@ def atomic_floor(table: torch.Tensor, ops: int, threads: int) -> torch.Tensor:
 
 _count_lock = threading.Lock()
 # kernel launches since the last reset
-kmer_hashes.launches = 0
+kmer_valid_hashes.launches = 0
 kmer_partition.launches = 0
 kmer_count_apply.launches = 0
 kmer_solid_bits.launches = 0
 kmer_insert.launches = 0
-KERNELS = (kmer_hashes, kmer_partition, kmer_count_apply, kmer_solid_bits, kmer_insert)
+KERNELS = (kmer_valid_hashes, kmer_partition, kmer_count_apply, kmer_solid_bits, kmer_insert)
 
-OCCUPANCY_FORMS = ("kmer_hashes", "kmer_partition_count", "kmer_partition_scatter",
+OCCUPANCY_FORMS = ("kmer_valid_hashes", "kmer_partition_count", "kmer_partition_scatter",
                    "kmer_count_apply", "kmer_solid_bits", "kmer_insert_plain",
-                   "kmer_insert_blocked", "atomic_floor")
+                   "kmer_insert_blocked", "atomic_floor", "kmer_valid_count",
+                   "kmer_valid_count_sampled")
 
 
 def occupancy() -> dict:

@@ -12,6 +12,14 @@ A head that is no candidate can yield neither a record nor an edit in SNV
 mode, so the host engine skips it.  ``valid`` and ``has_iupac`` are the
 gate pass's (ops/gate_kernel.py).
 
+With a blocked filter the same words come from the binned pass (``binned``
+says when): ``snv_cand_bin(seq, n, df, bins, out)`` stores the forced
+bits (valid and IUPAC) into ``out`` and bins every due probe (a valid head
+with no IUPAC byte, each of its three alternates) by the slice of the
+filter its word lies in, into ``bins`` (a ``CandBins``); then
+``snv_cand_probe(bins, df, out)`` probes them slice by slice and ORs each
+present one's head into ``out``.
+
 ``snv_site_rows(seq, n, cand, df, jump)`` returns, for a sorted int64 list
 of candidate heads, the uint8 [G, 6] rows the host engine consumes instead
 of probing (native/repair.cpp):
@@ -51,7 +59,7 @@ tensor it runs its plain version.  The kernels replace the JAX package's
 XLA programs engine/flag.py::_snv_cand_words_from_codes,
 _snv_site_data_from_codes, _polish_site_data_from_codes and
 _polish_cand_planes_from_codes with _gather_cand_masks; see the note in
-the .cu source.
+the .cu source.  The binned pass computes the candidate kernel's function.
 """
 
 from __future__ import annotations
@@ -77,6 +85,20 @@ CAND_BATCH = {"blocked": 6, "plain": 3}
 SITE_BATCH = 5  # the site kernel's: a window's pristine hash and four alternates
 MASK_BATCH = 4  # the mask kernel's: the four bases at the site
 EXACT_GATE = 32  # polish rows: flags bit 5, "device-exact gate"
+# the binned candidate pass: slices of 2^22 filter words (16 MiB), raised
+# until the filter has at most CAND_SLICES of them (utils/snv_sweep.py on
+# an H100: the fastest at 256 MiB to 4 GiB); the kernels take up to
+# MAX_CAND_SLICES (csrc kMaxCandSlices)
+CAND_SLICE_BITS = 22
+CAND_SLICES = 64
+MAX_CAND_SLICES = 256
+PROBE_CHUNK = 1024  # entries per block of its probe kernel (csrc kProbeChunk)
+CAND_ROUND_HEADS = 4  # heads a thread of its front end takes per round (csrc kCandRoundHeads)
+CAND_ROUNDS = 32 // CAND_ROUND_HEADS
+# the density rule (see ``binned``): the binned pass won or tied at 1.31
+# probes a sector and above, lost at 0.67 and below (utils/snv_sweep.py)
+MIN_PROBES_PER_SECTOR = 1.0
+ENTRY_BYTES = 12  # an entry: the alternate's canonical hash (8 B) and its head (4 B)
 
 # bit 0: fails isAcceptedBase; bit 1: accepted IUPAC (gate_kernel's classes)
 _NOT_ACGT = torch.from_numpy((gate_kernel._CLASS != 0).astype(np.uint8))
@@ -125,6 +147,166 @@ def snv_cand_words_plain(seq: torch.Tensor, n: int, df) -> torch.Tensor:
     for _b, allowed, can in alternate_hashes(seq, n, k):
         cand = cand | (allowed & _contains(df, can))
     return gate_kernel.pack_bits(cand & valid)
+
+
+def binned(df, heads: int) -> bool:
+    """Whether the candidate words of ``heads`` heads at a time (a group of
+    chunks) with the filter ``df`` come from the binned pass (snv_cand_bin,
+    snv_cand_probe) rather than snv_cand_words: a blocked filter, and at
+    least MIN_PROBES_PER_SECTOR of the group's probes (three a head) per
+    32-byte sector of the filter."""
+    return df.blocked and 24 * heads >= MIN_PROBES_PER_SECTOR * df.modulus  # words / 8 sectors
+
+
+class CandBins:
+    """The binned candidate pass's scratch, for up to ``heads`` heads at a
+    time and a blocked filter of ``words`` words (a power of two): the
+    buffers that ``snv_cand_bin`` fills and ``snv_cand_probe`` reads.
+
+    * ``counts``  int32 [slices * columns]: the probes of (slice, column),
+      slice-major (a slice is 2^slice_bits words); column b * CAND_ROUNDS +
+      r holds round r of block b (blocks of 8192 heads; in round r a
+      thread takes its heads [r * w, (r + 1) * w) of its 32, w =
+      CAND_ROUND_HEADS);
+    * ``ends``    int64, the same shape: its inclusive scan, so slice s's
+      bucket is ``[ends[s*columns] - counts[s*columns], ends[s*columns +
+      columns - 1])`` and the buckets lie in slice order;
+    * ``can``     int64 [3 * heads]: each probe's canonical hash;
+    * ``head``    int32 [3 * heads]: its head, relative to the batch's
+      first (uint32 bits).
+
+    ``n`` and ``columns`` are those of the batch last binned (0 before
+    any).  ``slice_bits`` None takes CAND_SLICE_BITS raised until the
+    filter has at most CAND_SLICES slices; a given one is raised until it
+    has at most MAX_CAND_SLICES.  The buffers are allocated once, with
+    torch.empty: ENTRY_BYTES per probe."""
+
+    def __init__(self, words: int, heads: int, device, slice_bits: int = None):
+        if words < 1 or words & (words - 1):
+            raise ValueError(f"the binned pass needs a power-of-two word count, got {words}")
+        if not 1 <= heads < 1 << 32:
+            raise ValueError(f"the binned pass takes 1 to 2^32 - 1 heads at a time, got {heads}")
+        wbits = words.bit_length() - 1
+        bits = max(CAND_SLICE_BITS, wbits - CAND_SLICES.bit_length() + 1) \
+            if slice_bits is None else slice_bits
+        if bits < 0:
+            raise ValueError(f"slice_bits must be >= 0, got {bits}")
+        while (words - 1) >> bits >= MAX_CAND_SLICES:
+            bits += 1
+        self.words = words
+        self.heads = heads
+        self.slice_bits = bits
+        self.n_slices = ((words - 1) >> bits) + 1
+        cells = self.n_slices * -(-heads // gate_kernel.TILE) * CAND_ROUNDS
+        self.counts = torch.empty(cells, dtype=torch.int32, device=device)
+        self.ends = torch.empty(cells, dtype=torch.int64, device=device)
+        self.can = torch.empty(3 * heads, dtype=torch.int64, device=device)
+        self.head = torch.empty(3 * heads, dtype=torch.int32, device=device)
+        self.n = 0
+        self.columns = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.can.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.counts, self.ends, self.can, self.head))
+
+    def cells(self) -> int:
+        """Entries of the count matrix of the batch last binned."""
+        return self.n_slices * self.columns
+
+    def total(self) -> int:
+        """Probes the batch last binned holds (reads the card)."""
+        cells = self.cells()
+        return int(self.ends[cells - 1]) if cells else 0
+
+    def _start(self, n: int) -> None:
+        self.n = max(0, n)
+        self.columns = -(-self.n // gate_kernel.TILE) * CAND_ROUNDS
+
+    def cell(self, head: torch.Tensor, can: torch.Tensor) -> torch.Tensor:
+        """The (slice, column) cell of each probe (int64 heads and hashes)."""
+        column = head // gate_kernel.TILE * CAND_ROUNDS + head % 32 // CAND_ROUND_HEADS
+        return ((can & (self.words - 1)) >> self.slice_bits) * self.columns + column
+
+
+def _check_bins(seq: torch.Tensor, n: int, df, bins: CandBins, out: torch.Tensor) -> None:
+    _check_filter(df)
+    if not df.blocked or df.modulus != bins.words:
+        raise ValueError(f"bins for a blocked filter of {bins.words} words, got a "
+                         f"{df.layout} filter of {df.modulus}")
+    if n > bins.heads:
+        raise ValueError(f"bins hold up to {bins.heads} heads, got {n}")
+    if seq.device != bins.device or out.device != bins.device:
+        raise ValueError(f"bins on {bins.device}, sequence on {seq.device}, words on {out.device}")
+    if out.dtype != torch.int32 or out.dim() != 1 or not out.is_contiguous() \
+            or out.numel() < -(-max(0, n) // 32):
+        raise ValueError(f"the words need a contiguous int32 tensor of {-(-max(0, n) // 32)}")
+
+
+def snv_cand_bin_plain(seq: torch.Tensor, n: int, df, bins: CandBins, out: torch.Tensor) -> None:
+    """The binned pass's front end in plain torch, on any device: the same
+    forced bits, count matrix and scan as the kernel, and each (slice,
+    column) range holding the same probes (here alternate by alternate in
+    head order; the kernel's order within a range depends on its
+    atomics)."""
+    _check_bins(seq, n, df, bins, out)
+    bins._start(n)
+    if n <= 0:
+        return
+    k = df.k
+    valid, iupac = gate_kernel.window_flags(seq[: n + k - 1], n, k)
+    out[: -(-n // 32)] = gate_kernel.pack_bits(valid & iupac)
+    live = valid & ~iupac
+    heads, cans = [], []
+    for _b, allowed, can in alternate_hashes(seq, n, k):
+        pos = torch.nonzero(live & allowed).squeeze(1)
+        heads.append(pos)
+        cans.append(can[pos])
+    head, can = torch.cat(heads), torch.cat(cans)
+    key = bins.cell(head, can)
+    cells = bins.cells()
+    counts = torch.bincount(key, minlength=cells)
+    bins.counts[:cells] = counts.to(torch.int32)
+    torch.cumsum(counts, 0, out=bins.ends[:cells])
+    order = torch.sort(key, stable=True).indices
+    bins.can[: can.numel()] = can[order]
+    head = head[order]
+    bins.head[: head.numel()] = torch.where(head >= 1 << 31, head - (1 << 32), head).to(torch.int32)
+
+
+def bin_entries(bins: CandBins) -> tuple:
+    """(cell, head, can), int64: the (slice, column) cell, the head and the
+    hash of every probe the last front end binned, in entry order."""
+    cells = bins.cells()
+    total = bins.total()
+    ids = torch.arange(cells, device=bins.device)
+    cell = torch.repeat_interleave(ids, bins.counts[:cells].long())
+    return cell, bins.head[:total].long() & 0xFFFFFFFF, bins.can[:total]
+
+
+def bin_multiset(bins: CandBins) -> tuple:
+    """``bin_entries`` sorted by cell, then head, then hash: equal for two
+    binnings exactly when each (slice, column) range holds the same probes."""
+    cell, head, can = bin_entries(bins)
+    order = torch.sort(can, stable=True).indices
+    order = order[torch.sort(head[order], stable=True).indices]
+    order = order[torch.sort(cell[order], stable=True).indices]
+    return cell[order], head[order], can[order]
+
+
+def snv_cand_probe_plain(bins: CandBins, df, out: torch.Tensor) -> None:
+    """The binned pass's probes in plain torch, on any device: the heads of
+    the present probes ORed into ``out``."""
+    _cell, head, can = bin_entries(bins)
+    if not head.numel():
+        return
+    present = torch.zeros(bins.n, dtype=torch.bool, device=bins.device)
+    present[head[_contains(df, can)]] = True
+    nw = -(-bins.n // 32)
+    out[:nw] |= gate_kernel.pack_bits(present)
 
 
 def _rotated_hash(win: torch.Tensor, k: int) -> torch.Tensor:
@@ -298,9 +480,20 @@ def open_library(path: str):
     lib.nts_cand_masks.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    ctypes.c_void_p, ctypes.c_uint64,                # gates, n_gates
                                    *filt, ctypes.c_void_p, ctypes.c_void_p]         # masks, stream
+    u64, ptr, i32 = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int
+    lib.nts_cand_bin.restype = i32
+    lib.nts_cand_bin.argtypes = [ptr, u64, i32,                 # seq, n, k
+                                 ptr, u64, i32, i32,            # table, words, wbits, hash_num
+                                 i32, i32, ptr, ptr,            # slice_bits, slices, counts, ends
+                                 ptr, ptr, ptr, i32, ptr]       # can, head, out, scatter, stream
+    lib.nts_cand_probe.restype = i32
+    lib.nts_cand_probe.argtypes = [ptr, ptr, ptr, u64,          # can, head, total, max_entries
+                                   ptr, u64, i32, i32,          # table, words, wbits, hash_num
+                                   ptr, ptr]                    # out, stream
     lib.nts_occupancy.restype = ctypes.c_int
     lib.nts_occupancy.argtypes = [ctypes.c_int]
-    for name in ("nts_tile_heads", "nts_halo_bytes"):
+    for name in ("nts_tile_heads", "nts_halo_bytes", "nts_max_cand_slices", "nts_probe_chunk",
+                 "nts_cand_rounds"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
     lib.nts_cand_batch.restype = ctypes.c_int
@@ -315,6 +508,10 @@ def open_library(path: str):
         raise RuntimeError("SNV candidate kernel batch differs from the wrapper's")
     if lib.nts_mask_batch() != MASK_BATCH:
         raise RuntimeError("mask kernel batch differs from the wrapper's")
+    if (lib.nts_max_cand_slices(), lib.nts_probe_chunk(), lib.nts_cand_rounds()) != (
+            MAX_CAND_SLICES, PROBE_CHUNK, CAND_ROUNDS):
+        raise RuntimeError("binned candidate pass slices, probe chunk or rounds differ from the "
+                           "wrapper's")
     return lib
 
 
@@ -366,6 +563,68 @@ def snv_cand_words(seq: torch.Tensor, n: int, df) -> torch.Tensor:
     with _count_lock:
         snv_cand_words.launches += 1
     return out
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def snv_cand_bin(seq: torch.Tensor, n: int, df, bins: CandBins, out: torch.Tensor) -> None:
+    """The binned pass's front end for heads [0, n) of ``seq`` and a blocked
+    filter (see the module docstring): the forced bits into
+    ``out[:ceil(n/32)]`` (stored, not ORed), every due probe into ``bins``:
+    the kernel's counting form, the scan of the count matrix
+    (torch.cumsum), then its scattering form.  One call is one launch (its
+    two forms).  On CUDA, ``seq`` is laid out as for snv_cand_words; the
+    kernels run on the current stream and the call does not synchronise."""
+    _check_bins(seq, n, df, bins, out)
+    if seq.device.type == "cpu":
+        return snv_cand_bin_plain(seq, n, df, bins, out)
+    lib = load_library()
+    _check_seq(seq, df, padded_len(n), aligned=True)
+    bins._start(n)
+    cells = bins.cells()
+    counts, ends = bins.counts[:cells], bins.ends[:cells]
+    if n <= 0:
+        return None
+    args = (seq.data_ptr(), n, df.k, df.table.data_ptr(), df.modulus, df.wbits, df.hash_num,
+            bins.slice_bits, bins.n_slices, counts.data_ptr())
+    stream = _stream(seq)
+    rc = lib.nts_cand_bin(*args, None, None, None, out.data_ptr(), 0, stream)
+    if rc == 0:
+        torch.cumsum(counts, 0, dtype=torch.int64, out=ends)
+        rc = lib.nts_cand_bin(*args, ends.data_ptr(), bins.can.data_ptr(), bins.head.data_ptr(),
+                              out.data_ptr(), 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"SNV candidate bin kernel launch failed: {lib.nts_error_string(rc).decode()}")
+    with _count_lock:
+        snv_cand_bin.launches += 1
+    return None
+
+
+def snv_cand_probe(bins: CandBins, df, out: torch.Tensor) -> None:
+    """The binned pass's probes: every probe the last ``snv_cand_bin`` put
+    into ``bins``, slice by slice, ORing the heads of the present ones into
+    ``out`` (uint32 bits as int32), in place.  On CUDA the kernel runs on
+    the current stream and the call does not synchronise."""
+    _check_filter(df)
+    if not df.blocked or df.modulus != bins.words or out.device != bins.device:
+        raise ValueError("the probes need the blocked filter and the words device of their bins")
+    if bins.device.type == "cpu":
+        return snv_cand_probe_plain(bins, df, out)
+    lib = load_library()
+    cells = bins.cells()
+    if not cells:
+        return None
+    total_at = bins.ends.data_ptr() + 8 * (cells - 1)
+    rc = lib.nts_cand_probe(bins.can.data_ptr(), bins.head.data_ptr(), total_at, 3 * bins.n,
+                            df.table.data_ptr(), df.modulus, df.wbits, df.hash_num,
+                            out.data_ptr(), _stream(out))
+    if rc != 0:
+        raise RuntimeError(f"SNV candidate probe kernel launch failed: {lib.nts_error_string(rc).decode()}")
+    with _count_lock:
+        snv_cand_probe.launches += 1
+    return None
 
 
 def _check_heads(seq: torch.Tensor, heads: torch.Tensor, what: str) -> None:
@@ -453,12 +712,15 @@ def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df) -> tor
 
 _count_lock = threading.Lock()
 snv_cand_words.launches = 0  # kernel launches since the last reset
+snv_cand_bin.launches = 0
+snv_cand_probe.launches = 0
 snv_site_rows.launches = 0
 polish_site_rows.launches = 0
 polish_cand_masks.launches = 0
 
 OCCUPANCY_FORMS = ("cand_plain", "cand_blocked", "site_plain", "site_blocked",
-                   "polish_site_plain", "polish_site_blocked", "masks_plain", "masks_blocked")
+                   "polish_site_plain", "polish_site_blocked", "masks_plain", "masks_blocked",
+                   "cand_bin_count", "cand_bin_scatter", "cand_probe")
 
 
 def occupancy() -> dict:

@@ -1,5 +1,5 @@
-"""The filter build's count and insert kernels on one NVIDIA GPU, at the
-shapes ``polish --reads`` gives them.
+"""The filter build's kernels on one NVIDIA GPU, at the shapes
+``polish --reads`` gives them.
 
     python -m ntedit_tpu_torch.utils.build_sweep
     python -m ntedit_tpu_torch.utils.build_sweep --against OTHER_CHECKOUT
@@ -22,21 +22,23 @@ CUDA events, the L2 flushed before each timed run, tables reset untimed.
   bytes and of one slice's) and gate_kernel's random-probe floor at the
   insert's probes of one batch, on the counter table and on the solid bits.
 
-With ``--against DIR`` it runs one comparison instead: this checkout's count
-and insert passes and the ones of ``DIR/ntedit_tpu_torch/csrc/
-build_kernel.cu`` (a checkout whose kernels have the one-step C interface
-``ntb_kmer_count`` and the counter-reading ``ntb_kmer_insert``),
-both held equal to the plain versions, take turns on the same data in
-ROUNDS rounds; per pass, each build's median ms and the rounds this
-checkout won.
+* ``hashes``: the histogram's hashes kernel on the first batch (at s = 0
+  and, as once the histogram samples, s = 1) and its whole pass (every
+  batch's hashes and the histogram), against its plain version, its bytes
+  bound and a device copy of those bytes.
+
+With ``--against DIR`` it runs the ``hashes`` comparison instead: this
+checkout's hashes kernel and pass and the dense kernel of DIR (a checkout
+with ``ntb_kmer_hashes``: every window's hash and validity words) with
+its compaction in torch, both held equal to the plain version, take turns
+on the same data in ROUNDS rounds; each one's median ms and the rounds
+this checkout won.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import subprocess
 
 import numpy as np
@@ -46,7 +48,8 @@ from ntedit_tpu_torch.core import bfbuild
 from ntedit_tpu_torch.core import nthash as nt
 from ntedit_tpu_torch.ops import build_kernel as bk
 from ntedit_tpu_torch.ops import gate_kernel
-from ntedit_tpu_torch.utils import build, simulate
+from ntedit_tpu_torch.utils import simulate
+from ntedit_tpu_torch.utils.other import DenseHashes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 K = 25
@@ -157,50 +160,6 @@ def bound_ms(nbytes: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# the one-step kernels, from another checkout
-# ---------------------------------------------------------------------------
-
-class OneStep:
-    """The count and insert kernels of another checkout with the one-step C
-    interface (``ntb_kmer_count``; ``ntb_kmer_insert`` reading the counters
-    at a cutoff), built from its sources with this checkout's flags."""
-
-    def __init__(self, other: str):
-        csrc = os.path.join(other, "ntedit_tpu_torch", "csrc")
-        src = os.path.join(csrc, "build_kernel.cu")
-        deps = tuple(os.path.join(csrc, f) for f in sorted(os.listdir(csrc)) if f.endswith(".cuh"))
-
-        def command(source, out):
-            cmd = gate_kernel._command(source, out)
-            cmd[cmd.index("-I") + 1] = csrc  # the other checkout's headers
-            return cmd
-
-        self.other = other
-        lib = ctypes.CDLL(build.build_library("build_kernel_other", src, command, deps=deps))
-        ptr, u64, i32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
-        lib.ntb_kmer_count.restype = i32
-        lib.ntb_kmer_count.argtypes = [ptr, u64, i32, i32, ptr, u64, u64, ptr]
-        lib.ntb_kmer_insert.restype = i32
-        lib.ntb_kmer_insert.argtypes = [ptr, u64, i32, i32, ptr, u64, u64, i32,
-                                        ptr, u64, u64, i32, i32, ptr]
-        self.lib = lib
-
-    def _ok(self, rc: int, what: str) -> None:
-        if rc != 0:
-            raise RuntimeError(f"{what} of {self.other} failed: CUDA error {rc}")
-
-    def count(self, seq, n: int, counters, slots: int) -> None:
-        self._ok(self.lib.ntb_kmer_count(seq.data_ptr(), n, K, HASH_NUM, counters.data_ptr(), slots,
-                                         gate_kernel.mod_magic(slots), bk._stream(seq)), "count")
-
-    def insert(self, seq, n: int, words, nw: int, counters, slots: int, cutoff: int) -> None:
-        self._ok(self.lib.ntb_kmer_insert(
-            seq.data_ptr(), n, K, HASH_NUM, counters.data_ptr(), slots,
-            gate_kernel.mod_magic(slots), cutoff, words.data_ptr(), nw, 0, nw.bit_length() - 1,
-            gate_kernel.LAYOUT_CODE["blocked"], bk._stream(seq)), "insert")
-
-
-# ---------------------------------------------------------------------------
 # the passes
 # ---------------------------------------------------------------------------
 
@@ -217,11 +176,10 @@ def plain_counts(seqs: list, slots: int) -> torch.Tensor:
 
 
 def count_numbers(seqs: list, slots: int, flush, slice_bits: int = bk.SLICE_BITS,
-                  old: OneStep = None, want: torch.Tensor = None) -> dict:
+                  want: torch.Tensor = None) -> dict:
     """The count pass at ``slice_bits``: each kernel on the first batch
     (partition, apply, the two with the scan: ``kmer_count``) and the whole
-    pass, against its plain versions, its bounds and floors; with ``old``,
-    the one-step kernel in turns on the same batch and pass.  ``want``:
+    pass, against its plain versions, its bounds and floors.  ``want``:
     the plain version's counts of the whole pass (computed when None)."""
     dev = flush.device
     seq0, n0 = seqs[0]
@@ -233,11 +191,6 @@ def count_numbers(seqs: list, slots: int, flush, slice_bits: int = bk.SLICE_BITS
     for seq, n in seqs:
         bk.kmer_count(seq, n, K, HASH_NUM, table, slots, bins)
     differing = int((table != want).sum())
-    if old is not None:
-        table.zero_()
-        for seq, n in seqs:
-            old.count(seq, n, table, slots)
-        differing += int((table != want).sum())
     # the first batch's bins against the plain partition's, as multisets
     bk.kmer_partition(seq0, n0, K, bins)
     plain_bins = bk.Bins(slots, HASH_NUM, n0, dev, slice_bits)
@@ -261,13 +214,6 @@ def count_numbers(seqs: list, slots: int, flush, slice_bits: int = bk.SLICE_BITS
         "count": (lambda: bk.kmer_count(seq0, n0, K, HASH_NUM, table, slots, bins), zero),
         "pass": (whole_pass, zero),
     }
-    if old is not None:
-        def old_pass():
-            for seq, n in seqs:
-                old.count(seq, n, table, slots)
-
-        cases["other_count"] = (lambda: old.count(seq0, n0, table, slots), zero)
-        cases["other_pass"] = (old_pass, zero)
     times = take_turns(cases, flush)
     bk.kmer_partition(seq0, n0, K, bins)  # the bins of the first batch again, for the apply
     plain = {
@@ -291,7 +237,7 @@ def count_numbers(seqs: list, slots: int, flush, slice_bits: int = bk.SLICE_BITS
     cell_bytes = 12 * cells  # the count matrix and its scan
     part_bytes = L0 + 4 * entries + cell_bytes
     apply_bytes = 4 * entries + cell_bytes + 2 * 32 * sectors
-    count_bytes = L0 + 2 * 32 * sectors  # the one-step kernel's bound: the function's bytes
+    count_bytes = L0 + 2 * 32 * sectors  # the count's bound: the function's bytes
     out = {
         "slots": slots, "slice_bits": bins.slice_bits, "slices": bins.n_slices,
         "scratch_bytes": bins.nbytes, "windows": n0, "increments": entries, "sectors": sectors,
@@ -307,24 +253,16 @@ def count_numbers(seqs: list, slots: int, flush, slice_bits: int = bk.SLICE_BITS
                   "bound_ms": bound_ms(count_bytes), "floor_ms": floors["table"],
                   "pass_ms": median(times["pass"]), "batches": len(seqs)},
     }
-    if old is not None:
-        out["count"].update(other_ms=median(times["other_count"]), other_pass_ms=median(times["other_pass"]),
-                            rounds=ROUNDS,
-                            won=int(sum(a < b for a, b in zip(times["count"], times["other_count"]))),
-                            pass_won=int(sum(a < b for a, b in zip(times["pass"], times["other_pass"]))))
-    else:
-        out["count"].update(other_ms=None, other_pass_ms=None)
     return out
 
 
-def insert_numbers(seqs: list, counters: torch.Tensor, slots: int, nw: int, flush,
-                   old: OneStep = None) -> dict:
+def insert_numbers(seqs: list, counters: torch.Tensor, slots: int, nw: int, flush) -> dict:
     """The insert pass at cutoff 2 into ``nw`` blocked words, reading the
     whole build's ``counters``: the solid bits and the insert of each batch
     against their plain versions; the pass (solid bits, then every batch)
     against its bound, and per batch (the pass over its launches); the
     insert kernel alone on the first batch against the probe floor on the
-    solid bits and on the counters; with ``old``, the counter-reading insert in turns."""
+    solid bits and on the counters."""
     dev = flush.device
     seq0, n0 = seqs[0]
     words = torch.zeros(nw, dtype=torch.int32, device=dev)
@@ -336,11 +274,6 @@ def insert_numbers(seqs: list, counters: torch.Tensor, slots: int, nw: int, flus
     for seq, n in seqs:
         bk.kmer_insert(seq, n, K, HASH_NUM, words, "blocked", nw, solid, slots)
     differing += int((words != want).sum())
-    if old is not None:
-        words.zero_()
-        for seq, n in seqs:
-            old.insert(seq, n, words, nw, counters, slots, CUTOFF)
-        differing += int((words != want).sum())
     one = torch.zeros_like(words)
     bk.kmer_insert(seq0, n0, K, HASH_NUM, one, "blocked", nw, solid, slots)
     one_want = torch.zeros_like(words)
@@ -378,13 +311,6 @@ def insert_numbers(seqs: list, counters: torch.Tensor, slots: int, nw: int, flus
         "insert": (lambda: bk.kmer_insert(seq0, n0, K, HASH_NUM, words, "blocked", nw, solid, slots),
                    zero),
     }
-    if old is not None:
-        def old_pass():
-            for seq, n in seqs:
-                old.insert(seq, n, words, nw, counters, slots, CUTOFF)
-
-        cases["other_pass"] = (old_pass, zero)
-        cases["other_insert"] = (lambda: old.insert(seq0, n0, words, nw, counters, slots, CUTOFF), zero)
     times = take_turns(cases, flush)
     plain = {
         "solid_bits": median(take_turns({"p": (lambda: bk.kmer_solid_bits_plain(counters, slots,
@@ -418,24 +344,81 @@ def insert_numbers(seqs: list, counters: torch.Tensor, slots: int, nw: int, flus
                  "bytes": pass_bytes, "bound_ms": bound_ms(pass_bytes),
                  "floor_ms": median(times["solid_bits"]) + len(seqs) * floor_bits},
     }
-    if old is not None:
-        a, b = times["pass"], times["other_pass"]
-        out["pass"].update(other_ms=median(b), other_ms_per_batch=median(b) / len(seqs), rounds=ROUNDS,
-                           won=int(sum(x < y for x, y in zip(a, b))))
-        out["insert"].update(other_ms=median(times["other_insert"]))
-    else:
-        out["pass"].update(other_ms=None, other_ms_per_batch=None)
-        out["insert"].update(other_ms=None)
     return out
 
 
-def build_numbers(seqs: list, flush, old: OneStep = None) -> dict:
+def hashes_numbers(seqs: list, flush, other: DenseHashes = None) -> dict:
+    """The hashes kernel on the first batch (s = 0 and s = 1: the call, with
+    its read of the totals, and its device work alone) and the histogram's
+    whole pass, against the plain version, the bytes bound and a copy of
+    those bytes; with ``other``, its dense kernel alone, with its
+    compaction, and its pass, in turns.  Raises on a difference."""
+    seq0, n0 = seqs[0]
+    differing = 0
+    for s in (0, 1):
+        got, valid = bk.kmer_valid_hashes(seq0, n0, K, s)
+        want, want_valid = bk.kmer_valid_hashes_plain(seq0, n0, K, s)
+        differing += int(not torch.equal(got, want)) + int(valid != want_valid)
+    emitted = int(bk.valid_hashes(seq0, n0, K).numel())
+    sampled = int(bk.kmer_valid_hashes(seq0, n0, K, 1)[0].numel())
+    if other is not None:
+        differing += int(not torch.equal(other.valid_hashes(seq0, n0, K), bk.valid_hashes(seq0, n0, K)))
+
+    def device_only(s):  # both forms and the scan, no read of the totals
+        lib = bk.load_library()
+        bk._raise_if_failed(lib, bk._valid_hashes_forms(lib, seq0, n0, K, s)[0], "k-mer hashes")
+
+    def hist(valid_hashes):
+        kept = bfbuild.SampledHashes(1 << 26)
+        for seq, n in seqs:
+            s = kept.s
+            kept.add(*valid_hashes(seq, n, s), s)
+        return kept.histogram(K)
+
+    def this_pass():
+        return hist(lambda seq, n, s: bk.kmer_valid_hashes(seq, n, K, s))
+
+    def other_pass():
+        return bfbuild.histogram_of((other.valid_hashes(seq, n, K) for seq, n in seqs), K)
+
+    want_hist = hist(lambda seq, n, s: bk.kmer_valid_hashes_plain(seq, n, K, s))
+    got_hist = this_pass()
+    differing += int((got_hist.f1, got_hist.f0) != (want_hist.f1, want_hist.f0)
+                     or not np.array_equal(got_hist.spectrum, want_hist.spectrum))
+    cases = {"hashes": (lambda: bk.kmer_valid_hashes(seq0, n0, K), None),
+             "hashes_sampled": (lambda: bk.kmer_valid_hashes(seq0, n0, K, 1), None),
+             "device": (lambda: device_only(0), None),
+             "device_sampled": (lambda: device_only(1), None),
+             "pass": (this_pass, None)}
+    if other is not None:
+        cases.update({"other_kernel": (lambda: other.kernel(seq0, n0, K), None),
+                      "other_hashes": (lambda: other.valid_hashes(seq0, n0, K), None),
+                      "other_pass": (other_pass, None)})
+    times = take_turns(cases, flush)
+    plain_ms = median(take_turns({"p": (lambda: bk.kmer_valid_hashes_plain(seq0, n0, K), None)},
+                                 flush, 2)["p"])
+    nbytes = n0 + K - 1 + 8 * emitted
+    out = {"windows": n0, "valid": emitted, "sampled_at_1": sampled, "batches": len(seqs),
+           "differing": differing, "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+           "floor_ms": copy_ms(nbytes, flush), "floor": "device copy of its bytes",
+           "plain_ms": plain_ms, "rounds": ROUNDS,
+           **{f"{name}_ms": median(t) for name, t in times.items()}}
+    if other is not None:
+        out["won"] = int(sum(a < b for a, b in zip(times["hashes"], times["other_hashes"])))
+        out["device_won"] = int(sum(a < b for a, b in zip(times["device"], times["other_kernel"])))
+        out["pass_won"] = int(sum(a < b for a, b in zip(times["pass"], times["other_pass"])))
+    if differing:
+        raise AssertionError(f"the hashes kernel differs from its plain version: {out}")
+    return out
+
+
+def build_numbers(seqs: list, flush) -> dict:
     """count_numbers and insert_numbers at the tables polish --reads sizes
     for ``seqs``; raises when a kernel differs from its plain version."""
     slots, nw = tables_for(seqs)
     want = plain_counts(seqs, slots)
-    out = {"count": count_numbers(seqs, slots, flush, old=old, want=want)}
-    out["insert"] = insert_numbers(seqs, want, slots, nw, flush, old)
+    out = {"count": count_numbers(seqs, slots, flush, want=want)}
+    out["insert"] = insert_numbers(seqs, want, slots, nw, flush)
     if out["count"]["differing"] or out["insert"]["differing"]:
         raise AssertionError(f"a build kernel differs from its plain version: {out}")
     return out
@@ -454,7 +437,7 @@ def slice_sweep(seqs: list, flush) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="build_sweep", description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR", default=None,
-                    help="compare with the count and insert kernels of the checkout at DIR instead")
+                    help="compare the hashes kernel with the dense one of the checkout at DIR instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("build_sweep: no CUDA device")
@@ -463,15 +446,15 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     bk.load_library()
-    old = OneStep(args.against) if args.against else None
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
     seqs = upload(read_pieces(), dev)
-    if old is not None:
-        print(json.dumps({"sweep": "against", "other": args.against,
-                          **build_numbers(seqs, flush, old)}), flush=True)
+    if args.against:
+        print(json.dumps({"sweep": "hashes", "other": args.against,
+                          **hashes_numbers(seqs, flush, DenseHashes(args.against))}), flush=True)
         return 0
     slice_sweep(seqs, flush)
     print(json.dumps({"sweep": "floors", **build_numbers(seqs, flush)}), flush=True)
+    print(json.dumps({"sweep": "hashes", **hashes_numbers(seqs, flush)}), flush=True)
     return 0
 
 

@@ -45,6 +45,7 @@ from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine import flag
 from ntedit_tpu_torch.ops import gate_kernel
 from ntedit_tpu_torch.utils import build, simulate
+from ntedit_tpu_torch.utils.other import library_path
 
 PROBES = 1 << 22
 THREADS = PROBES // 32
@@ -200,17 +201,8 @@ def batch_sweep(flush) -> None:
 def against(flush, other: str) -> None:
     """This checkout's gate kernel against the one of the checkout at
     ``other``, built from its sources with this checkout's flags."""
-    csrc = os.path.join(other, "ntedit_tpu_torch", "csrc")
-    src = os.path.join(csrc, "gate_kernel.cu")
-    deps = tuple(os.path.join(csrc, f) for f in sorted(os.listdir(csrc)) if f.endswith(".cuh"))
-
-    def command(source, out):
-        cmd = gate_kernel._command(source, out)
-        cmd[cmd.index("-I") + 1] = csrc  # the other checkout's headers
-        return cmd
-
     theirs = gate_kernel.open_library(
-        build.build_library("gate_kernel_other", src, command, deps=deps))
+        library_path(other, "gate_kernel.cu", "gate_kernel_other"))
     libs = {"this": gate_kernel.load_library(), "other": theirs}
     for name, times in take_turns(flush, libs):
         a, b = np.array(times["this"]), np.array(times["other"])

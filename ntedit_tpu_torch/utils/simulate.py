@@ -4,9 +4,11 @@
 generators (the port keeps its own host code).  The reference validates
 against an E. coli demo (draft with ~0.001 substitution and ~0.0001 indel
 rates, README.md:333); these produce the same *shape* of workload from a
-seed, without the network.  ``fill_counts`` and ``chunk_filters`` build the
+seed, without the network.  ``decorate`` adds the bytes a draft must
+survive, ``snv_genome`` makes the SNV workload (a reference and a copy
+with substitutions), and ``fill_counts`` and ``chunk_filters`` build the
 filters the card's runs time the gate kernel with (chip_smoke.py,
-utils/gate_sweep.py).
+utils/gate_sweep.py, utils/snv_sweep.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.core import nthash_ref as ref
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
 
 
 def random_genome(length: int, seed: int = 0) -> np.ndarray:
@@ -78,6 +81,40 @@ def inject_errors(
             prev = p + n
     out.append(truth[prev:])
     return np.concatenate(out), edits
+
+
+def decorate(draft: np.ndarray, rng, n_runs: int, n_iupac: int, lower: int) -> np.ndarray:
+    """Put short N runs, IUPAC bytes and one lowercase stretch into a draft."""
+    d = draft.copy()
+    L = len(d)
+    for p in rng.integers(0, max(1, L - 16), size=n_runs):
+        d[p : p + int(rng.integers(1, 13))] = ord("N")
+    d[rng.integers(0, L, size=n_iupac)] = IUPAC[rng.integers(0, len(IUPAC), size=n_iupac)]
+    if lower:
+        a = int(rng.integers(0, max(1, L - lower)))
+        d[a : a + lower] |= 0x20
+    return d
+
+
+def snv_genome(lengths, seed: int):
+    """(references, variants, planted): seeded reference contigs with a few
+    N runs, IUPAC bytes and a lowercase stretch, and for each a copy of the
+    clean reference with substitutions only, about 1 per kbp: the genome
+    whose k-mers the filter holds; and the number of substitutions."""
+    rng = np.random.default_rng(seed)
+    refs, variants, planted = [], [], 0
+    for i, L in enumerate(lengths):
+        t = random_genome(L, seed=seed + 2 * i)
+        v, r = t, t
+        if L > 1000:
+            v, edits = inject_errors(t, sub_rate=1e-3, ins_rate=0.0, del_rate=0.0,
+                                     seed=seed + 2 * i + 1)
+            planted += len(edits)
+            r = decorate(t, rng, n_runs=max(1, L // 5_000_000), n_iupac=max(1, L // 1_000_000),
+                         lower=min(2000, L // 10))
+        refs.append(r)
+        variants.append(v)
+    return refs, variants, planted
 
 
 def fill_counts(cbf, seq: np.ndarray, times: int = 1) -> None:

@@ -117,16 +117,73 @@ def test_histogram_sampled_matches_jax(reads):
     assert got.f0 % 2 == 0 and got.f0 != bfbuild.count_histogram(paths, 25, device="cpu").f0
 
 
+@pytest.mark.parametrize("budget,batch", [(2000, 700), (12_000, 700), (2000, 5000),
+                                          (12_000, bfbuild.BATCH)])
+def test_fused_sampling_matches_jax(reads, budget, batch):
+    """The hashes kernel's plain version emits only the current slice's
+    hashes and counts every valid window; batches kept before the slice
+    rose are thinned on the device: the JAX package's histogram."""
+    from ntedit_tpu.core import bfbuild as jb
+
+    paths, _, _ = reads
+    got = bfbuild.count_histogram(paths, 25, sample_budget=budget, device="cpu", batch=batch)
+    _same_hist(got, jb.count_histogram(paths, 25, sample_budget=budget))
+
+
+@pytest.mark.parametrize("k", [1, 17, 25, 33])
+@pytest.mark.parametrize("s", [0, 1, 4])
+def test_valid_hashes_match_jax(k, s):
+    """The hashes pass (``kmer_valid_hashes``, plain on the CPU): the JAX
+    package's valid canonical hashes in window order, those in sample
+    slice s, and the count of valid windows, on a batch with N, IUPAC,
+    lowercase and separator bytes."""
+    from ntedit_tpu.core import bfbuild as jb
+
+    seq = _edge_seq()
+    n = len(seq) - k + 1
+    want = jb.valid_canonical_hashes(seq, k)
+    if s:
+        want = want[(jb._sample_key(want) >> np.uint64(64 - s)) == 0]
+    got, valid = build_kernel.kmer_valid_hashes(torch.from_numpy(seq), n, k, s)
+    assert valid == len(jb.valid_canonical_hashes(seq, k)) > len(want) * (1 << s) // 2
+    assert np.array_equal(nt.as_uint64(got), want)
+    assert k == 1 or (nt.as_uint64(got) >= 1 << 63).any()  # k = 1 has four k-mers
+
+
+@pytest.mark.parametrize("budget", [500, 4000])
+def test_sampled_hashes_keep_only_their_bytes(budget):
+    """Batches given as views into buffers of a hash per window, as the
+    hashes kernel returns them: after every batch the kept ones hold at
+    most twice the bytes of their hashes (not a buffer each), and the
+    histogram equals that of the same hashes given compact."""
+    rng = np.random.default_rng(11)
+    n = 4096
+    views, compact = bfbuild.SampledHashes(budget), bfbuild.SampledHashes(budget)
+    for _ in range(60):
+        h = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, size=n // 4, dtype=np.int64))
+        h = torch.cat([h, h[: n // 8]])  # counts of 2
+        s = views.s
+        emit = h[build_kernel.in_slice(h, s)] if s else h
+        buf = torch.zeros(n, dtype=torch.int64)
+        buf[: emit.numel()] = emit
+        views.add(buf[: emit.numel()], h.numel(), s)
+        compact.add(emit.clone(), h.numel(), s)
+        held = sum(a.untyped_storage().nbytes() for a in views.kept)
+        assert held <= 2 * 8 * views.kept_n, (held, views.kept_n, views.s)
+    assert views.s >= 3
+    _same_hist(views.histogram(25), compact.histogram(25))
+
+
 def test_sample_key_matches_jax():
     from ntedit_tpu.core import bfbuild as jb
 
     h = np.random.default_rng(5).integers(0, 1 << 64, size=4000, dtype=np.uint64)
     h[:4] = [0, 1 << 63, (1 << 64) - 1, 0x9E3779B97F4A7C15]
-    got = nt.as_uint64(bfbuild._sample_key(nt.as_int64(h)))
+    got = nt.as_uint64(build_kernel.sample_key(nt.as_int64(h)))
     assert np.array_equal(got, jb._sample_key(h))
     for s in (1, 3, 17):
         want = (jb._sample_key(h) >> np.uint64(64 - s)) == 0
-        assert np.array_equal(bfbuild._in_slice(nt.as_int64(h), s).numpy(), want)
+        assert np.array_equal(build_kernel.in_slice(nt.as_int64(h), s).numpy(), want)
 
 
 def test_solid_cutoff_and_hist_file_match_jax(reads, tmp_path):
@@ -416,10 +473,28 @@ def _need_card():
 def test_hashes_kernel_matches_plain_on_the_card(k):
     _need_card()
     seq, n = _card_batch(k)
-    for m in (n, gate_kernel.TILE + 1, 33, 1):
-        got = build_kernel.kmer_hashes(seq, m, k)
-        want = build_kernel.kmer_hashes_plain(seq, m, k)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), m
+    for m in (n, gate_kernel.TILE + 1, gate_kernel.TILE, 33, 1):
+        for s in (0, 1, 3):
+            got, valid = build_kernel.kmer_valid_hashes(seq, m, k, s)
+            want, want_valid = build_kernel.kmer_valid_hashes_plain(seq, m, k, s)
+            assert torch.equal(got, want) and valid == want_valid, (m, s)
+    none = torch.zeros_like(seq)  # separators only: no valid window
+    got, valid = build_kernel.kmer_valid_hashes(none, n, k, 0)
+    assert got.numel() == 0 and valid == 0
+
+
+@pytest.mark.cuda
+def test_histogram_keeps_only_emitted_bytes_on_the_card():
+    """The kernel's hashes, batch after batch at a small budget: the kept
+    batches hold at most twice the bytes of their hashes."""
+    _need_card()
+    seq, n = _card_batch(25)
+    kept = bfbuild.SampledHashes(2000)
+    for _ in range(40):
+        s = kept.s
+        kept.add(*build_kernel.kmer_valid_hashes(seq, n, 25, s), s)
+        assert sum(a.untyped_storage().nbytes() for a in kept.kept) <= 2 * 8 * kept.kept_n
+    assert kept.s >= 3
 
 
 @pytest.mark.cuda

@@ -120,7 +120,7 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
 
 @pytest.mark.parametrize("failure", ["build", "load"])
 @pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows", "polish_site_rows",
-                                     "polish_cand_masks"])
+                                     "polish_cand_masks", "snv_cand_bin", "snv_cand_probe"])
 def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -137,8 +137,15 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
     fn = getattr(snv_kernel, wrapper)
     with pytest.raises((RuntimeError, OSError)):
         heads = torch.empty(3, dtype=torch.int64, device="meta")
+        bins = snv_kernel.CandBins(df.modulus, 100, "meta")
+        words = torch.empty(4, dtype=torch.int32, device="meta")
         if wrapper == "snv_cand_words":
             fn(seq, 100, df)
+        elif wrapper == "snv_cand_bin":
+            fn(seq, 100, df, bins, words)
+        elif wrapper == "snv_cand_probe":
+            bins.n, bins.columns = 100, snv_kernel.CAND_ROUNDS
+            fn(bins, df, words)
         elif wrapper == "polish_cand_masks":
             fn(seq, 100, heads, df)
         else:
@@ -147,8 +154,8 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
 
 
 @pytest.mark.parametrize("failure", ["build", "load"])
-@pytest.mark.parametrize("wrapper", ["kmer_hashes", "kmer_count", "kmer_insert", "kmer_partition",
-                                     "kmer_count_apply", "kmer_solid_bits"])
+@pytest.mark.parametrize("wrapper", ["kmer_valid_hashes", "kmer_count", "kmer_insert",
+                                     "kmer_partition", "kmer_count_apply", "kmer_solid_bits"])
 def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -165,8 +172,8 @@ def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_
     words = torch.empty(1024, dtype=torch.int32, device="meta")
     fn = getattr(build_kernel, wrapper)
     with pytest.raises((RuntimeError, OSError)):
-        if wrapper == "kmer_hashes":
-            fn(seq, 100, 25)
+        if wrapper == "kmer_valid_hashes":
+            fn(seq, 100, 25, 2)
         elif wrapper == "kmer_count":
             fn(seq, 100, 25, 3, table, 1000)
         elif wrapper == "kmer_partition":
@@ -302,3 +309,37 @@ def test_kernel_matches_plain_on_the_card(layout, k):
                 got = gate_kernel.gate_words(seq, n, df, snv, p)
                 want = gate_kernel.gate_words_plain(seq, n, df, snv, p)
                 assert torch.equal(got, want), (n, snv, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slice_bits", [23, 9, 4])
+@pytest.mark.parametrize("k", [25, 34])
+def test_snv_cand_bins_match_plain_on_the_card(k, slice_bits):
+    """The binned candidate pass: the bins (count matrix, scan and each
+    (slice, block) range as a multiset) and the probed words against the
+    plain versions and the candidate kernel's words, with the filter in 1,
+    32 and 256 slices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SNV kernels have no CPU mode")
+    truth, draft = card_draft(np.random.default_rng(6))
+    df = snv_filter("blocked", truth, k)
+    for n in (len(draft) - k + 1, gate_kernel.TILE + 1, gate_kernel.TILE, 33, 1):
+        buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+        buf[: n + k - 1] = torch.from_numpy(draft[: n + k - 1])
+        seq = buf.cuda()
+        got, want = (snv_kernel.CandBins(df.modulus, n, "cuda", slice_bits) for _ in range(2))
+        words = torch.full((-(-n // 32),), -1, dtype=torch.int32, device="cuda")
+        plain_words = words.clone()
+        snv_kernel.snv_cand_bin(seq, n, df, got, words)
+        snv_kernel.snv_cand_bin_plain(seq, n, df, want, plain_words)
+        cells = got.cells()
+        assert torch.equal(got.counts[:cells], want.counts[:cells]), n
+        assert torch.equal(got.ends[:cells], want.ends[:cells]), n
+        assert all(torch.equal(a, b) for a, b in zip(snv_kernel.bin_multiset(got),
+                                                     snv_kernel.bin_multiset(want))), n
+        assert torch.equal(words, plain_words), n  # the forced bits, stored
+        snv_kernel.snv_cand_probe(got, df, words)
+        snv_kernel.snv_cand_probe_plain(want, df, plain_words)
+        assert torch.equal(words, plain_words), n
+        assert torch.equal(words, snv_kernel.snv_cand_words_plain(seq, n, df)), n
+
