@@ -2,8 +2,9 @@
 """Smoke run of the torch port (ntedit_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as a user-sized run
-    python3 chip_smoke.py --against DIR   # the same, and the dense hashes kernel and the
-                                          # candidate kernel of the checkout at DIR in turns
+    python3 chip_smoke.py --against DIR   # the same, and the dense hashes kernel, the
+                                          # candidate kernel and the site-row kernel of
+                                          # the checkout at DIR in turns
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
@@ -26,7 +27,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
               bins, as multisets per range, and its probed words) with the
               filter in 1, 16 and 256 slices; the polish site-row kernel
               (jump 1, 3 and k) and the candidate-mask kernel on the gates
-              of the same inputs plus those heads.
+              of the same inputs plus those heads.  Both site forms also on
+              simulate.site_lists (every gate a cluster start, a cluster of
+              300, starts at list index 0 and 255-257, overlapping scans,
+              h + 2k at n, n + 1 and past the contig) at k = 25 and 1025.
               On the same k and lengths, with 0x00 separators added: the
               filter-build kernels against their plain versions (the
               compacted hashes at sample slices 0, 1 and 3; the count's
@@ -50,7 +54,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
               alone); and the two polish kernels at the path's shapes
               (site rows on one 2^22-head chunk's gates, masks on the 30
               Mbp contig's gates) against their plain versions, their bytes
-              bound, the probe floor and a torch.take yardstick.
+              bound, the probe floor and a torch.take yardstick; the site
+              rows in turns with DIR's kernel, 20 rounds.
 4. counting - the same check with a count-min filter and -p 2 -q 254, in
               polish mode and with -s 1: the SNV path of the configurations
               the candidate kernel does not serve (the gate kernel with snv
@@ -65,7 +70,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
               kernel alone at the shape that path gives it, one launch on a
               whole contig's candidates (the 30 Mbp contig, blocked; the 5
               Mbp contig, plain): against its plain version, its bytes
-              bound, the probe floor and a torch.take yardstick.  And the
+              bound, the probe floor and a torch.take yardstick, in turns
+              with DIR's kernel, 20 rounds.  And the
               candidate pass at snv_blocked's shape (utils/snv_sweep.py):
               every contig's by the path (the binned pass on its dense
               groups), by the binned pass alone and by the candidate kernel
@@ -105,7 +111,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
               the counters), the slice size and the scratch bytes.  With
               ``--against DIR``, DIR's candidate kernel at the chunk shape
               and its dense hashes kernel (alone, with its compaction, and
-              its histogram pass) in turns on the same inputs.
+              its histogram pass) in turns on the same inputs (DIR's
+              site-row kernel: phases 3 and 5).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -244,9 +251,9 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "snv_cand_words_kernelILi0E": "cand_plain", "snv_cand_words_kernelILi1E": "cand_blocked",
           "snv_cand_bin_kernelILb0E": "cand_bin_count", "snv_cand_bin_kernelILb1E": "cand_bin_scatter",
           "snv_cand_probe_kernel": "cand_probe",
-          "site_rows_kernelILi0ELb0E": "site_plain", "site_rows_kernelILi1ELb0E": "site_blocked",
-          "site_rows_kernelILi0ELb1E": "polish_site_plain",
-          "site_rows_kernelILi1ELb1E": "polish_site_blocked",
+          "site_rows_kernelILi0EE": "site_plain", "site_rows_kernelILi1EE": "site_blocked",
+          "polish_rows_kernelILi0EE": "polish_site_plain",
+          "polish_rows_kernelILi1EE": "polish_site_blocked",
           "cand_masks_kernelILi0E": "masks_plain", "cand_masks_kernelILi1E": "masks_blocked",
           "kmer_valid_count_kernelILb0E": "kmer_valid_count",
           "kmer_valid_count_kernelILb1E": "kmer_valid_count_sampled",
@@ -372,6 +379,28 @@ def site_heads(words, draft: np.ndarray, n: int, k: int):
     return torch.unique(torch.cat([flag.positions_on_device(words), extra]))
 
 
+INDEX_LIST_KS = (25, 1025)  # the k at which the kernel phase runs simulate.site_lists
+MIDDLE_LISTS = ("block_edges", "all_starts", "long_cluster", "overlapping")
+
+
+def index_lists(n: int, k: int, dev) -> list:
+    """simulate.site_lists on the card in two lists, where the contig holds
+    them: the middle ones one after another, each on a stretch of its own
+    (so each keeps its cluster starts; ``block_edges`` first, at list index
+    0), then ``ends_at``; and ``ends_past``."""
+    import torch
+
+    from ntedit_tpu_torch.utils import simulate
+
+    span = simulate.SITE_LIST_SPAN + 2 * k
+    if n < (len(MIDDLE_LISTS) + 2) * span:
+        return []
+    lists = [simulate.site_lists(n, k, span * (1 + i))[name] for i, name in enumerate(MIDDLE_LISTS)]
+    ends = simulate.site_lists(n, k, 0)
+    return [torch.from_numpy(h).to(dev)
+            for h in (np.concatenate([*lists, ends["ends_at"]]), ends["ends_past"])]
+
+
 def check_binned(seq_dev, n: int, df, want) -> tuple:
     """The binned candidate pass against its plain versions and the
     candidate words ``want``, with the filter in 1, 16 and 256 slices:
@@ -401,41 +430,45 @@ def check_binned(seq_dev, n: int, df, want) -> tuple:
     return 3, diff
 
 
-def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
-    """The SNV kernels vs their plain versions on one input: (differing
-    candidate words, site cases, differing site rows, binned cases,
-    binned differences)."""
+def check_snv_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=()) -> tuple:
+    """The SNV kernels vs their plain versions on one input, the site rows
+    also on the head lists ``more``: (differing candidate words, site
+    cases, differing site rows, binned cases, binned differences)."""
     from ntedit_tpu_torch.ops import snv_kernel
 
     got = snv_kernel.snv_cand_words(seq_dev, n, df)
     want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
     words = int((got != want).sum())
     bin_cases, bin_diff = check_binned(seq_dev, n, df, want) if df.blocked else (0, 0)
-    cand = site_heads(want, draft, n, df.k)
+    lists = [site_heads(want, draft, n, df.k), *more]
     rows = 0
     for jump in jumps:
-        got = snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump)
-        want = snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump)
-        rows += int((got != want).any(1).sum())
-    return words, len(jumps), rows, bin_cases, bin_diff
+        for cand in lists:
+            got = snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump)
+            want = snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump)
+            rows += int((got != want).any(1).sum())
+    return words, len(jumps) * len(lists), rows, bin_cases, bin_diff
 
 
-def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps) -> tuple:
+def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=()) -> tuple:
     """The polish site-row and candidate-mask kernels vs their plain
     versions on one input, on the contig's gates (cluster starts, later
-    gates and IUPAC-forced ones) plus the heads of ``site_heads``: (row
-    cases, differing rows, differing masks)."""
+    gates and IUPAC-forced ones) plus the heads of ``site_heads``, the rows
+    also on the head lists ``more``: (row cases, differing rows, differing
+    masks)."""
     from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
     gates = site_heads(gate_kernel.gate_words_plain(seq_dev, n, df), draft, n, df.k)
+    lists = [gates, *more]
     rows = 0
     for jump in jumps:
-        got = snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump)
-        want = snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump)
-        rows += int((got != want).any(1).sum())
+        for heads in lists:
+            got = snv_kernel.polish_site_rows(seq_dev, n, heads, df, jump)
+            want = snv_kernel.polish_site_rows_plain(seq_dev, n, heads, df, jump)
+            rows += int((got != want).any(1).sum())
     got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
     masks = int((got != snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df)).sum())
-    return len(jumps), rows, masks
+    return len(jumps) * len(lists), rows, masks
 
 
 BUILD_SLICE_BITS = 13  # slices of 8192 counters: the kernel phase's tables split 1, 3 and 7 ways
@@ -584,8 +617,10 @@ def phase_kernel() -> dict:
                         bad.append({"k": k, "filter": name, "L": L, "snv": snv, "words": diff})
                 if df.counting or p != 1:
                     continue
+                # simulate.site_lists on the whole draft at two k
+                more = index_lists(n, k, dev) if k in INDEX_LIST_KS and L == lengths[0] else []
                 words, site_cases, rows, bin_cases, bins = check_snv_kernels(
-                    seq_dev, draft[:L], n, df, jumps)
+                    seq_dev, draft[:L], n, df, jumps, more)
                 count["cand_cases"] += 1
                 count["cand_differing_words"] += words
                 count["site_cases"] += site_cases
@@ -595,7 +630,7 @@ def phase_kernel() -> dict:
                 if words or rows or bins:
                     bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
                                 "site_rows": rows, "binned": bins})
-                cases, rows, masks = check_polish_kernels(seq_dev, draft[:L], n, df, jumps)
+                cases, rows, masks = check_polish_kernels(seq_dev, draft[:L], n, df, jumps, more)
                 count["polish_site_cases"] += cases
                 count["polish_site_differing_rows"] += rows
                 count["mask_cases"] += 1
@@ -926,9 +961,10 @@ def device_share(pol, recs) -> dict:
             "device_top": sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]}
 
 
-def phase_main(work: str) -> list:
+def phase_main(work: str, against=None) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.utils.other import SiteRows
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # GENOME + 5,060 bases
@@ -954,7 +990,8 @@ def phase_main(work: str) -> list:
     out[0]["native"] = run_native("main_native", work, blk, draft_path,
                                   os.path.join(work, "main_blocked_ref"), 8)
     out[0]["on_off"] = on_off_rounds(blk, draft_path, 8)
-    out[0]["polish_kernels"] = polish_kernel_numbers(drafts[0], blk, cfg.jump)
+    other = SiteRows(against) if against else None
+    out[0]["polish_kernels"] = polish_kernel_numbers(drafts[0], blk, cfg.jump, other)
     del blk
     t0 = time.perf_counter()
     pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(n_kmers, 3, 0.001), 3, k)
@@ -963,7 +1000,7 @@ def phase_main(work: str) -> list:
     build_s = time.perf_counter() - t0
     out.append(run_and_check("main_plain", work, pl, draft_path, truths, cfg, args, rows_on))
     out[1].update(filter_build_s=build_s, filter_bytes=pl.bytes,
-                  polish_kernels=polish_kernel_numbers(drafts[0], pl, cfg.jump))
+                  polish_kernels=polish_kernel_numbers(drafts[0], pl, cfg.jump, other))
     for row in out:
         if row["site_row_launches"] or row["mask_launches"]:
             raise AssertionError(f"{row['phase']}: a polish row or mask kernel ran by default")
@@ -1105,10 +1142,13 @@ def phase_snv(work: str, against=None) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.utils import simulate
+    from ntedit_tpu_torch.utils.other import SiteRows
+
+    other = SiteRows(against) if against else None
 
     def site_kernel(host_bf, seq):
         return snv_site_numbers(seq, bloom.DeviceFilter.from_host(host_bf, torch.device("cuda")),
-                                cfg.jump, flush_buffer())
+                                cfg.jump, flush_buffer(), other)
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # main_blocked's
@@ -1353,7 +1393,7 @@ def build_kernel_numbers(pieces: list, flush, against) -> dict:
     from ntedit_tpu_torch.utils.other import DenseHashes
 
     seqs = build_sweep.upload(pieces, torch.device("cuda"))
-    other = DenseHashes(against) if against else None
+    other = DenseHashes(against) if against and DenseHashes.offered(against) else None
     out = {"kmer_valid_hashes": build_sweep.hashes_numbers(seqs, flush, other)}
     out.update(build_sweep.build_numbers(seqs, flush))
     return out
@@ -1574,21 +1614,25 @@ def snv_cand_probed(seq_dev, n: int, df) -> tuple:
 
 
 def snv_site_probed(seq_dev, n: int, cand, df, jump: int) -> tuple:
-    """(sectors, valid rows, probes) of the SNV site pass: per valid row the
-    four pre-checks at the head, five probes per stride window that holds
-    the site and one for the window past it."""
+    """(sectors, valid rows, probes) of the SNV site pass: the probes the
+    function needs per valid row: at the head and at each stride window
+    that holds the site, the pristine window and the three alternates (the
+    draft's own base is the pristine window), and one for the window past
+    the site; 37 at k = 25, jump 3."""
     import torch
 
     from ntedit_tpu_torch.ops import snv_kernel
 
     k = df.k
     valid, windows = snv_kernel.site_windows(seq_dev, n, cand, k, jump)
+    tail = seq_dev[cand[valid] + k - 1].long() & 0xDF  # the draft's base at the site
     cans = []
     for item, c, can in windows:
         past = item > 0 and 1 + (item - 1) * jump > k - 1  # the window starts past the site
-        if (item == 0 and c < 0) or (past and c >= 0):
-            continue  # not probed
-        cans.append(can)
+        if c < 0:
+            cans.append(can)
+        elif not past:
+            cans.append(can[tail != snv_kernel.ACGT[c]])
     sectors, probes = probe_cost(df, torch.cat(cans))
     return int(torch.unique(torch.cat(sectors)).numel()), int(valid.sum()), probes
 
@@ -1692,13 +1736,43 @@ def snv_cand_numbers(seq_dev, n: int, L: int, df, flush, other=None) -> dict:
             "other_ms": float(np.median(times["other"])) if other is not None else None}
 
 
-def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
+SITE_ROUNDS = 20  # rounds in turns of the site kernel's timings
+# what the kernels line gives of the site kernel beside the usual keys
+SITE_KEYS = ("faster_than_other_rounds", "rounds", "probes", "floor_threads")
+
+
+def site_turns(this, other, want, flush) -> dict:
+    """The site kernel at one shape: ``this`` (the wrapper as the path
+    calls it) and ``other`` (another checkout's kernel, or None), each a
+    callable giving rows, held to ``want``, then timed in turns
+    (utils/snv_sweep.py time_turns, L2 flushed), SITE_ROUNDS rounds: ms
+    (median) of each, and the rounds in which this was the faster."""
+    from ntedit_tpu_torch.utils import snv_sweep
+
+    cases = {"this": this} if other is None else {"this": this, "other": other}
+    for name, fn in cases.items():
+        diff = int((fn() != want).any(1).sum())
+        if diff:
+            raise AssertionError(f"site rows ({name}) differ from plain in {diff} rows")
+    times = snv_sweep.time_turns(cases, flush, SITE_ROUNDS)
+    out = {"ms": float(np.median(times["this"])), "other_ms": None,
+           "faster_than_other_rounds": None, "rounds": SITE_ROUNDS}
+    if other is not None:
+        out["other_ms"] = float(np.median(times["other"]))
+        out["faster_than_other_rounds"] = sum(a < b for a, b in zip(times["this"], times["other"]))
+    return out
+
+
+def snv_site_numbers(seq: np.ndarray, df, jump: int, flush, other=None) -> dict:
     """The SNV site kernel at the shape the SNV path gives it: one launch on
     all the candidates of the contig ``seq``.  The rows the path's own pass
     brings back (flag.snv_site_data) and the kernel's on the same candidates
-    are held to the plain version; then the kernel's ms, the plain
-    version's, the bytes bound, the probe floor (a warp per candidate, the
-    kernel's loads in flight) and a torch.take gather of as many words."""
+    are held to the plain version; then the kernel's ms (in turns with
+    ``other``, utils/other.py SiteRows, that checkout's kernel, where
+    given), the plain version's, the bytes bound,
+    the probe floor (the probes the function needs, from as many threads as
+    the kernel gives the list, its loads in flight) and a torch.take gather
+    of as many words."""
     import torch
 
     from ntedit_tpu_torch.engine import flag
@@ -1725,14 +1799,20 @@ def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
     # the candidates' list and rows, the 2k bytes of each (overlaps once), the sectors
     seq_bytes = int(torch.clamp(cand[1:] - cand[:-1], max=2 * df.k).sum()) + 2 * df.k
     nbytes = 8 * g + 6 * g + seq_bytes + 32 * sectors
-    floor_ms, take_ms = yardsticks(df.table, probes, 32 * g, snv_kernel.SITE_BATCH, flush)
-    ms = time_cuda(lambda: snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump), 20, flush)
+    threads = snv_kernel.SITE_LANES * g
+    floor_ms, take_ms = yardsticks(df.table, probes, threads, snv_kernel.SITE_BATCH[df.layout],
+                                   flush)
+    turns = site_turns(
+        lambda: snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump),
+        None if other is None else lambda: other.rows(seq_dev, n, cand, df, jump, False),
+        want, flush)
     plain_ms = time_cuda(lambda: snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump),
                          1, flush)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = turns["ms"]
     return {"heads": n, "candidates": g, "valid_rows": valid, "jump": jump, "probes": probes,
-            "sectors": sectors, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "floor_ms": floor_ms, "take_ms": take_ms,
+            "floor_threads": threads, "sectors": sectors, "bytes": nbytes, **turns,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "floor_ms": floor_ms, "take_ms": take_ms,
             "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
             "differing_rows": diff, "path_differing_rows": path_diff, "max_abs_err": err}
 
@@ -1748,17 +1828,19 @@ def covered_bytes(heads, widths, size: int) -> int:
     return int((torch.cumsum(marks, 0)[:size] > 0).sum())
 
 
-def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int) -> dict:
+def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> dict:
     """The polish kernels at the shapes the main path gives them, on the
     30 Mbp contig: the site-row kernel on its first 2^22-head chunk's gates
     (one launch a chunk on the path), the mask kernel on all its gates (one
     launch a contig on the native path).  Each against its plain version,
     with the path's own results (flag.iter_polish_site_chunks,
     flag.polish_candidate_masks) held to it too; then ms (CUDA events, L2
-    flushed), the plain version's ms, the bytes bound (the gate list, the
-    output, every distinct byte read, the filter sectors probed once), the
-    probe floor (as many random probes from as many threads, the kernel's
-    loads in flight) and a torch.take gather of as many words."""
+    flushed; the rows in turns with ``other``, utils/other.py SiteRows,
+    that checkout's kernel, where given),
+    the plain version's ms, the bytes bound (the gate list, the output,
+    every distinct byte read, the filter sectors probed once), the probe
+    floor (as many random probes from as many threads, the kernel's loads
+    in flight) and a torch.take gather of as many words."""
     import torch
 
     from ntedit_tpu_torch.core import bloom
@@ -1796,16 +1878,26 @@ def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int) -> dict:
                          torch.cat([torch.full_like(gates, k), torch.full_like(valid_starts, 2 * k)]),
                          len(seq))
     nbytes = 8 * g + 6 * g + read + 32 * sectors
-    floor_ms, take_ms = yardsticks(df.table, probes, 32 * max(valid, 1), snv_kernel.SITE_BATCH,
+    # the threads on rows: each block's listed rows times its lanes a row
+    per_block = torch.bincount(torch.nonzero(want[:, 0] & 1 == 1).squeeze(1)
+                               // snv_kernel.POLISH_GATES).tolist()
+    lanes = [snv_kernel.polish_lanes(c) for c in per_block]
+    threads = max(sum(rt * c for rt, c in zip(lanes, per_block)), 1)
+    floor_ms, take_ms = yardsticks(df.table, probes, threads, snv_kernel.SITE_BATCH[df.layout],
                                    flush)
-    ms = time_cuda(lambda: snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump), 20, flush)
+    turns = site_turns(
+        lambda: snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump),
+        None if other is None else lambda: other.rows(seq_dev, n, gates, df, jump, True),
+        want, flush)
+    ms = turns["ms"]
     plain_ms = time_cuda(lambda: snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump),
                          1, flush)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out["site_rows"] = {
         "chunk_heads": m, "gates": g, "cluster_starts": int(starts.numel()), "valid_rows": valid,
         "exact_gates": int((want[:, 0] & 32 != 0).sum()), "probes": probes, "sectors": sectors,
-        "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "floor_threads": threads, "bytes": nbytes, **turns, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
         "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
         "ms_over_floor": ms / floor_ms, "differing_rows": diff, "path_differing_rows": path_diff,
         "max_abs_err": err}
@@ -1922,8 +2014,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR", default=None,
-                    help="also time the dense hashes kernel and the candidate kernel of the "
-                         "checkout at DIR (utils/other.py) in turns with this checkout's")
+                    help="also time the dense hashes kernel, the candidate kernel and the "
+                         "site-row kernel of the checkout at DIR (utils/other.py) in turns "
+                         "with this checkout's")
     against = ap.parse_args(argv).against
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1940,30 +2033,38 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     power = smi.split(",")[-1].strip()
     t_start = time.perf_counter()
-    emit(phase_build())
-    emit(phase_resources())
-    kernel = phase_kernel()
+    phase_s = {}  # seconds of each phase
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    emit(timed("build", phase_build))
+    emit(timed("kernel_resources", phase_resources))
+    kernel = timed("kernel", phase_kernel)
     emit(kernel)
     main_rows = []
     with tempfile.TemporaryDirectory(prefix="ntedit_smoke_") as work:
         torch.cuda.reset_peak_memory_stats()
-        for row in phase_main(work):
+        for row in timed("main", phase_main, work, against):
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             main_rows.append(row)
             emit(row)
-        for row in phase_counting(work):
+        for row in timed("counting", phase_counting, work):
             main_rows.append(row)
             emit(row)
         torch.cuda.reset_peak_memory_stats()
-        snv_rows = phase_snv(work, against)
+        snv_rows = timed("snv", phase_snv, work, against)
         for row in snv_rows:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             emit(row)
-        build = phase_filter_build(work, against)
+        build = timed("filter_build", phase_filter_build, work, against)
         build_numbers = build.pop("kernel_numbers")
         emit(build)
     torch.cuda.reset_peak_memory_stats()
-    numbers = phase_numbers(power, against)
+    numbers = timed("numbers", phase_numbers, power, against)
     numbers["build"] = build_numbers
     emit(numbers)
     blk = numbers["layouts"]["blocked"]
@@ -2013,8 +2114,11 @@ def main(argv=None) -> int:
             "library_ms": None,
             "take_ms": one["take_ms"],
             "floor_ms": one["floor_ms"],
-            "layouts": {layout: {key: r.get(key) for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                             "plain_ms", "other_ms")}
+            "other_ms": one["other_ms"],
+            **({key: one[key] for key in SITE_KEYS} if name == "snv_site_rows" else {}),
+            "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
+                                                         "plain_ms", "other_ms", *SITE_KEYS)
+                                 if key in r}
                         for layout, r in parts.items()},
         })
     # the binned candidate pass (blocked filter, dense groups): its kernels
@@ -2072,8 +2176,11 @@ def main(argv=None) -> int:
             "library_ms": None,
             "take_ms": one["take_ms"],
             "floor_ms": one["floor_ms"],
+            "other_ms": one.get("other_ms"),
+            **({key: one[key] for key in SITE_KEYS} if name == "polish_site_rows" else {}),
             "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                         "plain_ms")}
+                                                         "plain_ms", "other_ms", *SITE_KEYS)
+                                 if key in r}
                         for layout, r in parts.items()},
         })
     # the filter-build kernels: launches from polish --reads, times on its
@@ -2114,7 +2221,8 @@ def main(argv=None) -> int:
             "floor_ms": one["floor_ms"],
             **extra,
         })
-    emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start})
+    emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start,
+          "phase_s": phase_s})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

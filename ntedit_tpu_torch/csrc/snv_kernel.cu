@@ -20,7 +20,7 @@
 // packed 32 heads per little-endian uint32.  valid and has_iupac are the
 // gate kernel's: every byte accepted; some byte accepted but not ACGTacgt.
 //
-// site_rows_kernel<L, false> replaces _snv_site_data_from_codes and the row
+// site_rows_kernel<L> replaces _snv_site_data_from_codes and the row
 // validity of its caller snv_site_data.  For every candidate head h it
 // writes the six bytes the host engine consumes instead of probing
 // (native/repair.cpp, fix_site):
@@ -34,9 +34,12 @@
 //
 // counts saturated at 255.  A row is valid when h <= n - k - 1 and every
 // byte of [h, h + 2k), all that those windows read, is ACGTacgt; an invalid
-// row is six zeros and the engine probes live.
+// row is six zeros and the engine probes live.  The function needs 37 probes
+// a row at k = 25, jump 3: the four pre-checks, four per stride window that
+// holds the site (pristine and three alternates; the draft's base takes the
+// pristine result) and one past it (kk = k - 1, when jump divides k - 1).
 //
-// site_rows_kernel<L, true> replaces the polish form of that program,
+// polish_rows_kernel<L> replaces the polish form of that program,
 // _polish_site_data_from_codes, and the row assembly of its caller
 // iter_polish_site_chunks.  It takes a chunk's sorted gate heads and writes
 // one row per gate, so the rows go back parallel to the gates:
@@ -67,10 +70,13 @@
 // (about 30 G probes/s, PERF.md), not by bytes per second and not by the
 // hashing.  The candidate pass makes three probes per live head (blocked;
 // plain: up to hash_num each, stopping at the first clear bit), beside
-// 1 B of ASCII read and 1/8 B written per head.  The site pass makes about
-// 4 + 5 ceil(k / jump) probes per row, on a few thousand candidates or
-// cluster starts per million heads: its work is small, and what it saves is
-// on the host.  The mask pass makes four probes per gate.
+// 1 B of ASCII read and 1/8 B written per head.  The site pass makes
+// 4 + 4 ceil(k / jump) probes per valid row (three fewer when jump
+// divides k - 1: the window past the site is probed once), 37 at k = 25 and jump
+// 3, on a few thousand candidates or cluster starts per million heads; its
+// bytes (the head list, the rows, 2k bytes a row) are a tenth of what its
+// random probes cost, so its floor is those probes from its own threads.
+// The mask pass makes four probes per gate.
 //
 // The binned candidate pass computes the candidate kernel's words with a
 // blocked filter, where a group of chunks makes many probes per filter
@@ -117,17 +123,38 @@
 // probed four and masked one) and sends the probes of one or two heads
 // together as predicated loads.
 //
-// The site kernel gives one warp to each head of its list.  Its work items
-// are the head itself (the four pre-check probes) and the ceil(k / jump)
-// stride windows (five probes each: pristine and four alternates, one of
-// which repeats the pristine word; one probe past the site); lane l takes
-// items l, l + 32, ...  A lane hashes its window directly from the ASCII in
-// global memory (k steps; the 2k bytes of a head are shared by its lanes
-// through the L1), derives the alternates' hashes by XOR with the rotated
-// seed difference (srol is a bit permutation, so XOR-linear), and sends its
-// five probes together.  The counts meet in a shuffle reduction and lane 0
-// writes the row.  In the polish form most gates are no cluster start: their
-// warp reads k bytes for bit 5 and leaves.
+// The site row kernel gives a row to kRowLanes = 4 adjacent lanes, each a
+// contiguous run of the row's window items (item 0 the head, item 1 + s
+// stride s): against 1, 2 and 8 lanes on the SNV path's lists of 20 k
+// and 188 k rows (utils/site_sweep.py, chip_smoke.py; PERF.md) 4 was the
+// fastest at both.  A lane hashes its first item from its k bytes and rolls on
+// through the rest: one pass over [h, h + 2k) for a whole row, 2k roll
+// steps where hashing each window from scratch took k (ceil(k / jump) +
+// 1), with the roll tables of the gate kernel extended by an empty "byte
+// leaving" for the first k steps.  Its bytes come as aligned 16-byte
+// vectors, each read once, and validity
+// (every byte ACGTacgt) is taken from the same bytes as they are rolled in.
+// The alternates' hashes are XORs of the window's hash with the rotated
+// seed difference at the site (srol is a bit permutation, so XOR-linear).
+// A window's probes go out as it is emitted, two windows a batch (eight
+// predicated loads; plain: one window, whose hash_num rounds take more
+// registers), each predicated on every byte read so far being ACGTacgt: a
+// row whose first window holds another byte makes no probe.  Counts stay
+// in registers (the four verify counts 16 bits apart in one 64-bit word)
+// and the row goes out as one 6-byte store after log2(lanes) shuffles.
+// There is no per-row array, so any k up to kHalo + 1 works.
+//
+// The polish row kernel is one launch.  A block takes kPolishGates gates,
+// two a thread: each thread checks its gates' windows four bytes at a time
+// (the vectors of [h, h + k), or of [h, h + 2k) where a row may start, go
+// out together), writes bit 5 and zeros, and lists each cluster start with
+// a valid row (about 4% of gates on the main path, some 20 a block) in
+// shared memory.  Then the block's threads share out its listed rows, up
+// to 8 lanes a row (polish_lanes: within 3% of a cap of 4 with a blocked
+// filter, 6% faster with a plain one), with the SNV form's routine.  A
+// first design launched a gate kernel that appended the starts to a
+// global list and a row kernel that read its length on the card: on an
+// H100, 0.039 ms a chunk against 0.027 for this one (PERF.md).
 //
 // The mask kernel gives one thread to each gate: it hashes the window from
 // the ASCII (gates cluster, so neighbouring threads read neighbouring bytes
@@ -150,7 +177,14 @@ using namespace nth;
 constexpr int kSnvHeadsBlocked = 2;
 constexpr int kSnvHeadsPlain = 1;
 constexpr int kAlts = 3;                    // alternates probed per head
-constexpr int kSiteThreads = 128;           // site kernel: 4 warps, one head each
+constexpr int kRowThreads = 128;            // SNV site row kernel: threads per block
+constexpr int kRowLanes = 4;                // its lanes a row (measured: PERF.md)
+constexpr int kSiteWindowsBlocked = 2;      // window items whose probes go out together
+constexpr int kSiteWindowsPlain = 1;        // (plain: hash_num rounds, more registers)
+constexpr int kPolishThreads = 256;         // polish row kernel: threads per block
+constexpr int kPolishGates = 2 * kPolishThreads;  // gates a polish block takes
+constexpr int kMaxPolishLanes = 8;          // lanes a polish row at most
+constexpr uint32_t kExactGate = 32;         // polish rows: flags bit 5
 constexpr int kMaskProbes = 4;              // mask kernel: the four bases at the site
 constexpr int kMaxCandSlices = 256;         // binned candidate pass: filter slices (one per thread)
 constexpr int kCandRoundHeads = 4;          // its front end: heads a thread takes per round
@@ -438,101 +472,355 @@ snv_cand_probe_kernel(const uint64_t* __restrict__ can, const uint32_t* __restri
 // code of "ACGT"[c]: A 0, C 1, G 3, T 2
 __device__ __forceinline__ unsigned code_of_base(int c) { return c == 2 ? 3u : (c == 3 ? 2u : (unsigned)c); }
 
-template <int L, bool Polish>
-__global__ void __launch_bounds__(kSiteThreads)
-site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ heads,
-                 uint64_t n_heads, Filter f, int jump, uint8_t* __restrict__ rows)
-{
-	const uint64_t g = ((uint64_t)blockIdx.x * kSiteThreads + threadIdx.x) >> 5;
-	const int lane = threadIdx.x & 31;
-	if (g >= n_heads)
-		return;  // whole warps leave together
-	const int k = f.k;
-	const int64_t h = heads[g];
-	uint8_t* row = rows + 6 * g;
+// index in "ACGT" of a 2-bit code: the inverse of code_of_base
+__device__ __forceinline__ unsigned base_of_code(unsigned x) { return x ^ (x >> 1); }
 
-	// polish: bit 5 when [h, h + k) holds ACGTacgt only (a gate's window
-	// holds no unaccepted byte, so this is "no accepted IUPAC byte")
-	uint32_t exact = 0;
-	if (Polish && h >= 0 && (uint64_t)h < n) {
-		int other = 0;
-		for (int i = lane; i < k; i += 32)
-			other |= byte_class(seq[h + i]) != 0;
-		exact = __any_sync(kFullWarp, other) ? 0u : 32u;
+// ---------------------------------------------------------------------------
+// Site rows: a thread (or 2 or 4 adjacent lanes) per row, one rolled pass
+// over the row's bytes [h, h + 2k).
+// ---------------------------------------------------------------------------
+
+// The row kernel's roll tables: x = 4 * out + in by 2-bit code, out 4 = no
+// byte leaving (the first k steps of a pass build its first window):
+// fh' = srol1(fh) ^ roll_f[x], rh' = sror1(rh ^ roll_r[x]).
+struct SiteTables {
+	uint64_t roll_f[20], roll_r[20];
+};
+
+__device__ __forceinline__ void fill_site_tables(SiteTables& tb, int k, unsigned t)
+{
+	if (t < 20) {
+		const unsigned o = t >> 2, i = t & 3;
+		tb.roll_f[t] = (o < 4 ? srol(fwd_seed(o), k) : 0) ^ fwd_seed(i);
+		tb.roll_r[t] = (o < 4 ? rev_seed(o) : 0) ^ srol(rev_seed(i), k);
 	}
-	// valid: the scan of k windows past h fits below n, over ACGTacgt only;
-	// polish: and h starts a cluster
-	bool ok = h >= 0 && (uint64_t)h + (uint64_t)k + 1 <= n;
-	if (Polish)
-		ok = ok && (g == 0 || heads[g - 1] != h - 1);
-	if (ok) {
-		int bad = 0;
-		for (int i = lane; i < 2 * k; i += 32)
-			bad |= byte_class(seq[h + i]) != 0;
-		ok = !__any_sync(kFullWarp, bad);
+}
+
+__device__ __forceinline__ uint4 load16(const uint8_t* p)  // p 16-byte aligned
+{
+	return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ unsigned byte_of(const uint4& v, unsigned i)
+{
+	const unsigned w = (i & 8) ? ((i & 4) ? v.w : v.z) : ((i & 4) ? v.y : v.x);
+	return (w >> ((i & 3) * 8)) & 0xFF;
+}
+
+// A stream of bytes taken in address order, read as aligned 16-byte vectors,
+// each once.  A 16-byte block that holds a byte of an allocation lies in
+// its page, so the bytes of a block past either end are safe to read (and
+// are never used).
+struct Bytes {
+	uintptr_t at = ~(uintptr_t)0;  // the block in v
+	uint4 v;
+
+	__device__ __forceinline__ unsigned get(const uint8_t* p)
+	{
+		const uintptr_t a = (uintptr_t)p & ~(uintptr_t)15;
+		if (a != at) {
+			at = a;
+			v = load16(reinterpret_cast<const uint8_t*>(a));
+		}
+		return byte_of(v, (unsigned)((uintptr_t)p & 15));
 	}
-	if (!ok) {
-		if (lane < 6)
-			row[lane] = lane == 0 ? (uint8_t)exact : 0;
+};
+
+__device__ __forceinline__ bool is_acgt(unsigned c)
+{
+	const unsigned fold = c & 0xDF;  // bits 1, 3, 7, 20: A, C, G, T - 64
+	return (fold & 0xE0) == 0x40 && ((0x0010008Au >> (fold & 31)) & 1);
+}
+
+// bytes j of a word (0 <= j < 4) with lo <= j < hi, as a byte mask
+__device__ __forceinline__ uint32_t byte_mask(int64_t lo, int64_t hi)
+{
+	const int a = (int)(lo < 0 ? 0 : (lo > 4 ? 4 : lo)), b = (int)(hi < 0 ? 0 : (hi > 4 ? 4 : hi));
+	return (uint32_t)(((1ULL << (8 * b)) - 1) & ~((1ULL << (8 * a)) - 1));
+}
+
+// index of the first byte of [p, p + len) that is not ACGTacgt (len when
+// none), checked four bytes at a time; the 16-byte vectors go out four at
+// a time before any is checked
+__device__ uint32_t first_other(const uint8_t* p, uint32_t len)
+{
+	constexpr int kVecs = 4;
+	const uintptr_t a0 = (uintptr_t)p, a1 = a0 + len;
+	for (uintptr_t a = a0 & ~(uintptr_t)15; a < a1; a += 16 * kVecs) {
+		uint4 v[kVecs];
+#pragma unroll
+		for (int u = 0; u < kVecs; ++u)
+			v[u] = a + 16 * u < a1 ? load16(reinterpret_cast<const uint8_t*>(a + 16 * u))
+			                       : make_uint4(0x41414141u, 0x41414141u, 0x41414141u, 0x41414141u);
+#pragma unroll
+		for (int u = 0; u < kVecs; ++u) {
+			const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+			for (int j = 0; j < 4; ++j) {
+				const uint32_t f = w[j] & 0xDFDFDFDFu;
+				const uint32_t eq = __vcmpeq4(f, 0x41414141u) | __vcmpeq4(f, 0x43434343u) |
+				                    __vcmpeq4(f, 0x47474747u) | __vcmpeq4(f, 0x54545454u);
+				const uintptr_t b = a + 16 * u + 4 * j;
+				const uint32_t bad = ~eq & byte_mask((int64_t)(a0 - b), (int64_t)(a1 - b));
+				if (bad)
+					return (uint32_t)(b - a0) + (__ffs(bad) - 1) / 8;
+			}
+		}
+	}
+	return len;
+}
+
+// offset of window item i in a row: item 0 the head, item 1 + s stride s
+__device__ __forceinline__ int window_offset(int i, int jump) { return i == 0 ? 0 : 1 + (i - 1) * jump; }
+
+// srol(x, d) given dl = d % 33 and dh = d % 31
+__device__ __forceinline__ uint64_t srol_by(uint64_t x, unsigned dl, unsigned dh)
+{
+	uint64_t lo = x & kLow33, hi = x >> 33;
+	if (dl)
+		lo = ((lo << dl) | (lo >> (33 - dl))) & kLow33;
+	if (dh)
+		hi = ((hi << dh) | (hi >> (31 - dh))) & 0x7FFFFFFFULL;
+	return (hi << 33) | lo;
+}
+
+// A thread's share of a row, before the lanes of the row meet.  ``ver``
+// holds the four verify counts by 2-bit code, 16 bits each.
+struct RowPart {
+	uint32_t pre = 0, there = 0;
+	uint64_t ver = 0;
+	bool ok = true;  // every byte this thread read is ACGTacgt
+};
+
+// Window items [i0, i1) of the row at p = seq + h: hash them in one roll,
+// from the first item's k bytes on, and probe each as it comes, two items
+// a batch (pristine and the three alternates at the site; the window past
+// the site, pristine only; item 0's draft base is the pristine window).
+// ``last``: also check the bytes up to 2k that no window reads.
+template <int L>
+__device__ __forceinline__ void row_part(const SiteTables& tb, const uint8_t* p, int k, int jump,
+                                         int i0, int i1, bool last, const Filter& f, RowPart& rp)
+{
+	constexpr int kSiteWindows = L == kPlain ? kSiteWindowsPlain : kSiteWindowsBlocked;
+	constexpr int kSiteBatch = 4 * kSiteWindows;  // pristine and three alternates per item
+	if (i0 >= i1)
+		return;
+	const int q0 = window_offset(i0, jump);
+	const unsigned cd = code_of(p[k - 1]);  // the draft's base at the site
+	uint64_t dfw[3], drv[3];               // the alternates' seed differences
+	unsigned shift[3], bit[3];
+#pragma unroll
+	for (int a = 0; a < 3; ++a) {
+		const unsigned cb = (cd + 1 + a) & 3;
+		dfw[a] = fwd_seed(cd) ^ fwd_seed(cb);
+		drv[a] = rev_seed(cd) ^ rev_seed(cb);
+		shift[a] = 16 * cb;
+		bit[a] = base_of_code(cb);
+	}
+	int q = q0;  // the next byte the roll takes in
+	uint64_t fh = 0, rh = 0;
+	Bytes in, out;
+	for (int i = i0; i < i1; i += kSiteWindows) {
+		uint64_t can[kSiteBatch];
+		uint32_t live = 0;
+		int pos[kSiteWindows];
+#pragma unroll
+		for (int w = 0; w < kSiteWindows; ++w) {
+			pos[w] = -1;
+#pragma unroll
+			for (int j = 0; j < 4; ++j)
+				can[4 * w + j] = 0;
+			if (i + w >= i1)
+				continue;
+			const int off = window_offset(i + w, jump);
+			for (; q < off + k; ++q) {  // roll on to the window at off
+				const unsigned c = in.get(p + q);
+				rp.ok &= is_acgt(c);
+				const unsigned o = q - k >= q0 ? code_of(out.get(p + q - k)) : 4u;
+				const unsigned x = 4 * o + code_of(c);
+				fh = srol1(fh) ^ tb.roll_f[x];
+				rh = sror1(rh ^ tb.roll_r[x]);
+			}
+			pos[w] = k - 1 - off;  // the site's index in the window, past it when < 0
+			can[4 * w] = fh < rh ? fh : rh;
+			if (pos[w] >= 0) {
+				const unsigned fl = (unsigned)off % 33, fr = (unsigned)off % 31;
+				const unsigned rl = (unsigned)pos[w] % 33, rr = (unsigned)pos[w] % 31;
+#pragma unroll
+				for (int a = 0; a < 3; ++a) {
+					const uint64_t fb = fh ^ srol_by(dfw[a], fl, fr), rb = rh ^ srol_by(drv[a], rl, rr);
+					can[4 * w + 1 + a] = fb < rb ? fb : rb;
+				}
+			}
+			live |= (rp.ok ? (pos[w] >= 0 ? 0xFu : 1u) : 0u) << (4 * w);
+		}
+		const uint32_t present = live & ~probe_batch<L, kSiteBatch>(can, live, f);
+#pragma unroll
+		for (int w = 0; w < kSiteWindows; ++w) {
+			if (i + w >= i1)
+				continue;
+			const uint32_t r = present >> (4 * w);
+			if (i + w == 0) {
+				rp.pre = (r & 1) << base_of_code(cd);
+#pragma unroll
+				for (int a = 0; a < 3; ++a)
+					rp.pre |= ((r >> (1 + a)) & 1) << bit[a];
+			} else if (pos[w] >= 0) {
+				rp.there += r & 1;
+				rp.ver += (uint64_t)(r & 1) << (16 * cd);
+#pragma unroll
+				for (int a = 0; a < 3; ++a)
+					rp.ver += (uint64_t)((r >> (1 + a)) & 1) << shift[a];
+			} else {  // past the site: the four verify windows are the pristine one
+				rp.there += r & 1;
+				rp.ver += (uint64_t)(r & 1) * 0x0001000100010001ULL;
+			}
+		}
+	}
+	if (last)
+		for (; q < 2 * k && rp.ok; ++q)
+			rp.ok = is_acgt(in.get(p + q));
+}
+
+__device__ __forceinline__ void store_row(uint8_t* row, uint32_t b0, uint32_t b1, uint32_t b2,
+                                          uint32_t b3, uint32_t b4, uint32_t b5)
+{
+	uint16_t* r = reinterpret_cast<uint16_t*>(row);  // rows are 2-byte aligned
+	r[0] = (uint16_t)(b0 | (b1 << 8));
+	r[1] = (uint16_t)(b2 | (b3 << 8));
+	r[2] = (uint16_t)(b4 | (b5 << 8));
+}
+
+__device__ __forceinline__ uint32_t sat(uint32_t v) { return v < 255 ? v : 255; }
+
+// The ``rt`` lanes of a row (``group`` of the warp) meet in log2(rt)
+// shuffles and its first lane writes the row: polish with bit 5 (a polish
+// row is only computed where [h, h + 2k) is ACGTacgt) and check_missing.
+template <bool Polish>
+__device__ __forceinline__ void finish_row(RowPart rp, int rt, unsigned group, int part, int items,
+                                           uint8_t* row)
+{
+	for (int d = 1; d < rt; d <<= 1) {
+		rp.ok = __shfl_xor_sync(group, (int)rp.ok, d) && rp.ok;
+		rp.pre |= __shfl_xor_sync(group, rp.pre, d);
+		rp.there += __shfl_xor_sync(group, rp.there, d);
+		rp.ver += __shfl_xor_sync(group, rp.ver, d);
+	}
+	if (part != 0)
+		return;
+	const uint32_t exact = Polish ? kExactGate : 0u;
+	if (!rp.ok) {
+		store_row(row, exact, 0, 0, 0, 0, 0);
 		return;
 	}
+	const uint32_t strides = (uint32_t)(items - 1);
+	const uint32_t v[4] = {(uint32_t)(rp.ver & 0xFFFF), (uint32_t)((rp.ver >> 16) & 0xFFFF),
+	                       (uint32_t)((rp.ver >> 32) & 0xFFFF), (uint32_t)(rp.ver >> 48)};
+	store_row(row, exact | 1u | (rp.pre << 1), sat(Polish ? strides - rp.there : rp.there),
+	          sat(v[0]), sat(v[1]), sat(v[3]), sat(v[2]));  // "ACGT": codes 0, 1, 3, 2
+}
 
-	const unsigned cd = code_of(seq[h + k - 1]);  // the draft's base at the site
-	const int strides = (k + jump - 1) / jump;
-	uint32_t pre = 0, there = 0, ver[4] = {0, 0, 0, 0};
-	for (int item = lane; item <= strides; item += 32) {
-		// item 0: the window at h; item 1 + s: the window at h + 1 + s * jump
-		const int off = item == 0 ? 0 : 1 + (item - 1) * jump;
-		const uint8_t* p = seq + h + off;
-		uint64_t fh = 0, rh = 0;
-		for (int i = 0; i < k; ++i) {
-			fh = srol1(fh) ^ fwd_seed(code_of(p[i]));
-			rh = srol1(rh) ^ rev_seed(code_of(p[k - 1 - i]));
-		}
-		// the site lies at index pos of this window (past it when pos < 0)
-		const int pos = k - 1 - off;
-		uint64_t can[5];
-		can[0] = fh < rh ? fh : rh;
+// lanes [rt * (l / rt), rt * (l / rt) + rt) of a warp
+__device__ __forceinline__ unsigned lane_group(int rt)
+{
+	return ((1u << rt) - 1) << ((threadIdx.x & 31) & ~(unsigned)(rt - 1));
+}
+
+// The SNV rows: row r of the head list, n_rows of them, on kRowLanes
+// adjacent lanes, each taking a contiguous run of the row's window items.
+template <int L>
+__global__ void __launch_bounds__(kRowThreads)
+site_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ heads,
+                 uint64_t n_rows, Filter f, int jump, uint8_t* __restrict__ rows)
+{
+	__shared__ SiteTables tb;
+	fill_site_tables(tb, f.k, threadIdx.x);
+	__syncthreads();
+
+	const int k = f.k;
+	constexpr int rt = kRowLanes;
+	const uint64_t tid = (uint64_t)blockIdx.x * kRowThreads + threadIdx.x;
+	const uint64_t r = tid / rt;
+	if (r >= n_rows)
+		return;  // a row's lanes leave together
+	const int part = (int)(tid & (uint64_t)(rt - 1));
+	const int items = (k - 1) / jump + 2;  // the head and the ceil(k / jump) strides
+	const int64_t h = heads[r];
+	RowPart rp;
+	rp.ok = h >= 0 && (uint64_t)h + (uint64_t)k + 1 <= n;  // the k windows past h fit below n
+	if (rp.ok)
+		row_part<L>(tb, seq + h, k, jump, part * items / rt, (part + 1) * items / rt,
+		            part == rt - 1, f, rp);
+	finish_row<false>(rp, rt, lane_group(rt), part, items, rows + 6 * r);
+}
+
+// Lanes a polish row for a block's ``c`` rows: the most, up to
+// kMaxPolishLanes, that the block's threads give every row at once.
+__host__ __device__ __forceinline__ int polish_lanes(uint32_t c)
+{
+	int rt = kMaxPolishLanes;
+	while (rt > 1 && (uint32_t)rt * c > kPolishThreads)
+		rt >>= 1;
+	return rt;
+}
+
+// The polish rows: block b takes gates [b * kPolishGates, (b + 1) *
+// kPolishGates) of the sorted list, two a thread.  Each thread writes its
+// gates' bit 5 (the window [h, h + k) holds ACGTacgt only) with zeros,
+// unless the gate is a cluster start (the list's first or heads[g - 1] !=
+// h - 1) with a valid row (h + k + 1 <= n, [h, h + 2k) ACGTacgt only): those
+// go onto the block's list in shared memory.  Then the block's threads take
+// its listed rows, polish_lanes(their count) lanes a row.
+template <int L>
+__global__ void __launch_bounds__(kPolishThreads)
+polish_rows_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ heads,
+                   uint64_t n_gates, Filter f, int jump, uint8_t* __restrict__ rows)
+{
+	constexpr int kEach = kPolishGates / kPolishThreads;
+	__shared__ SiteTables tb;
+	__shared__ uint32_t n_starts;
+	__shared__ uint32_t starts[kPolishGates];  // offsets of the listed gates in the block's
+	const unsigned t = threadIdx.x;
+	fill_site_tables(tb, f.k, t);
+	if (t == 0)
+		n_starts = 0;
+	__syncthreads();
+
+	const int k = f.k;
+	const uint64_t g0 = (uint64_t)blockIdx.x * kPolishGates;
+	int64_t h[kEach], before[kEach];
 #pragma unroll
-		for (int c = 0; c < 4; ++c) {
-			uint64_t fb = fh, rb = rh;
-			if (pos >= 0) {
-				const unsigned cb = code_of_base(c);
-				fb ^= srol(fwd_seed(cd) ^ fwd_seed(cb), k - 1 - pos);
-				rb ^= srol(rev_seed(cd) ^ rev_seed(cb), pos);
-			}
-			can[1 + c] = fb < rb ? fb : rb;
-		}
-		// past the site the five hashes are one: probe it once; at the head
-		// itself only the four pre-checks are asked for
-		const uint32_t live = pos < 0 ? 1u : (item == 0 ? 0x1Eu : 0x1Fu);
-		uint32_t present = live & ~probe_batch<L, 5>(can, live, f);
-		if (pos < 0)
-			present *= 0x1Fu;
-		if (item == 0) {
-			pre = present >> 1;
-		} else {
-			there += present & 1;
-#pragma unroll
-			for (int c = 0; c < 4; ++c)
-				ver[c] += (present >> (1 + c)) & 1;
-		}
+	for (int j = 0; j < kEach; ++j) {
+		const uint64_t g = g0 + t + (uint64_t)j * kPolishThreads;
+		h[j] = g < n_gates ? heads[g] : -1;
+		before[j] = g < n_gates && g > 0 ? heads[g - 1] : -2;
 	}
 #pragma unroll
-	for (int d = 16; d > 0; d >>= 1) {
-		pre |= __shfl_xor_sync(kFullWarp, pre, d);
-		there += __shfl_xor_sync(kFullWarp, there, d);
-#pragma unroll
-		for (int c = 0; c < 4; ++c)
-			ver[c] += __shfl_xor_sync(kFullWarp, ver[c], d);
+	for (int j = 0; j < kEach; ++j) {
+		const uint64_t g = g0 + t + (uint64_t)j * kPolishThreads;
+		if (g >= n_gates)
+			continue;
+		// one pass: [h, h + k) for bit 5, [h, h + 2k) where a row may start
+		const bool inside = h[j] >= 0 && (uint64_t)h[j] < n;
+		const bool first = inside && before[j] != h[j] - 1 && (uint64_t)h[j] + (uint64_t)k + 1 <= n;
+		const uint32_t good = inside ? first_other(seq + h[j], (first ? 2 : 1) * k) : 0;
+		if (first && good >= 2 * (uint32_t)k)
+			starts[atomicAdd(&n_starts, 1u)] = t + j * kPolishThreads;
+		else
+			store_row(rows + 6 * g, good >= (uint32_t)k ? kExactGate : 0u, 0, 0, 0, 0, 0);
 	}
-	if (lane == 0) {
-		const uint32_t second = Polish ? (uint32_t)strides - there : there;
-		row[0] = (uint8_t)(exact | 1u | (pre << 1));
-		row[1] = (uint8_t)(second < 255 ? second : 255);
-#pragma unroll
-		for (int c = 0; c < 4; ++c)
-			row[2 + c] = (uint8_t)(ver[c] < 255 ? ver[c] : 255);
+	__syncthreads();
+
+	const uint32_t c = n_starts;
+	const int rt = polish_lanes(c);
+	const int part = (int)(t & (unsigned)(rt - 1));
+	const int items = (k - 1) / jump + 2;
+	const int i0 = part * items / rt, i1 = (part + 1) * items / rt;
+	for (uint32_t r = t / rt; r < c; r += kPolishThreads / rt) {
+		const uint64_t g = g0 + starts[r];
+		RowPart rp;  // a listed row is valid
+		row_part<L>(tb, seq + heads[g], k, jump, i0, i1, part == rt - 1, f, rp);
+		finish_row<true>(rp, rt, lane_group(rt), part, items, rows + 6 * g);
 	}
 }
 
@@ -683,39 +971,40 @@ int nts_cand_probe(const void* can, const void* head, const void* total_at, uint
 
 // Site rows of the ``n_heads`` heads ``heads`` (sorted int64) of a contig
 // of ``n`` heads, whose n + k - 1 bytes lie at ``seq``; ``rows`` holds
-// 6 * n_heads bytes.  ``polish`` 0: SNV candidates; 1: a chunk's gates,
-// one row each (the polish form).  ``jump`` >= 1.
+// 6 * n_heads bytes, 2-byte aligned.  ``polish`` 0: SNV candidates; 1: a
+// chunk's gates, one row each (the polish form).  ``jump`` >= 1.
 int nts_site_rows(const void* seq, uint64_t n, int k, const void* heads, uint64_t n_heads,
                   const void* table, uint64_t modulus, uint64_t magic, int wbits, int layout,
                   int hash_num, int jump, int polish, void* rows, void* stream)
 {
 	if (n_heads == 0)
 		return 0;
-	if (!filter_ok(k, hash_num, modulus) || jump < 1)
+	if (!filter_ok(k, hash_num, modulus) || jump < 1 || (layout != kPlain && layout != kBlocked) ||
+	    n_heads > (1ULL << 40))
 		return (int)cudaErrorInvalidValue;
 	const Filter f{table, modulus, magic, wbits, hash_num, k, 1};
 	const auto* s = static_cast<const uint8_t*>(seq);
 	const auto* c = static_cast<const int64_t*>(heads);
 	auto* r = static_cast<uint8_t*>(rows);
 	auto st = static_cast<cudaStream_t>(stream);
-	if (n_heads > (0xFFFFFFFFFFFFFFFFULL - kSiteThreads) / 32)
-		return (int)cudaErrorInvalidValue;
-	const uint64_t blocks = (n_heads * 32 + kSiteThreads - 1) / kSiteThreads;
+	const uint64_t blocks = polish ? (n_heads + kPolishGates - 1) / kPolishGates
+	                               : (n_heads * kRowLanes + kRowThreads - 1) / kRowThreads;
 	if (blocks > 0x7FFFFFFFULL)
 		return (int)cudaErrorInvalidValue;
 	const unsigned b = (unsigned)blocks;
-	if (layout == kPlain && !polish)
-		site_rows_kernel<kPlain, false><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
-	else if (layout == kBlocked && !polish)
-		site_rows_kernel<kBlocked, false><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	if (polish && layout == kPlain)
+		polish_rows_kernel<kPlain><<<b, kPolishThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+	else if (polish)
+		polish_rows_kernel<kBlocked><<<b, kPolishThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
 	else if (layout == kPlain)
-		site_rows_kernel<kPlain, true><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
-	else if (layout == kBlocked)
-		site_rows_kernel<kBlocked, true><<<b, kSiteThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
+		site_rows_kernel<kPlain><<<b, kRowThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
 	else
-		return (int)cudaErrorInvalidValue;
+		site_rows_kernel<kBlocked><<<b, kRowThreads, 0, st>>>(s, n, c, n_heads, f, jump, r);
 	return (int)cudaGetLastError();
 }
+
+// The lanes a polish block gives each of its ``c`` rows.
+int nts_polish_lanes(uint32_t c) { return polish_lanes(c); }
 
 // Candidate masks of the ``n_gates`` gate heads ``gates`` (int64) of a
 // contig of ``n`` heads, whose n + k - 1 bytes lie at ``seq``; ``masks``
@@ -756,10 +1045,10 @@ int nts_occupancy(int which)
 	switch (which) {
 	case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_words_kernel<kPlain>, kThreads, 0); break;
 	case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_words_kernel<kBlocked>, kThreads, 0); break;
-	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kPlain, false>, kSiteThreads, 0); break;
-	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked, false>, kSiteThreads, 0); break;
-	case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kPlain, true>, kSiteThreads, 0); break;
-	case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked, true>, kSiteThreads, 0); break;
+	case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kPlain>, kRowThreads, 0); break;
+	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked>, kRowThreads, 0); break;
+	case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, polish_rows_kernel<kPlain>, kPolishThreads, 0); break;
+	case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, polish_rows_kernel<kBlocked>, kPolishThreads, 0); break;
 	case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kPlain>, kThreads, 0); break;
 	case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kBlocked>, kThreads, 0); break;
 	case 8: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_bin_kernel<false>, kThreads, 0); break;
@@ -781,6 +1070,9 @@ const char* nts_error_string(int code)
 
 int nts_cand_batch(int layout) { return kAlts * (layout == kPlain ? kSnvHeadsPlain : kSnvHeadsBlocked); }
 int nts_mask_batch() { return kMaskProbes; }
+int nts_site_batch(int layout) { return 4 * (layout == kPlain ? kSiteWindowsPlain : kSiteWindowsBlocked); }
+int nts_site_lanes() { return kRowLanes; }
+int nts_polish_gates() { return kPolishGates; }
 int nts_max_cand_slices() { return kMaxCandSlices; }
 int nts_cand_rounds() { return kCandRounds; }
 int nts_probe_chunk() { return kProbeChunk; }

@@ -35,7 +35,9 @@ counts saturated at 255.  A row is valid when h <= n - k - 1 and every byte
 of [h, h + 2k), all that those windows read, is ACGTacgt; an invalid row is
 all zero and the engine probes live.  (The JAX package checks [h, h + 2k - 1)
 and so lets through a row whose last stride window, read when jump divides
-k - 1, ends in a byte it coded as 'A'; the port's row is zero there.)
+k - 1, ends in a byte it coded as 'A'; the port's row is zero there.)  The
+kernel gives a row four lanes (SITE_LANES), each hashing its share of the
+row's windows in one roll, and makes only the probes the function needs.
 
 ``polish_site_rows(seq, n, gates, df, jump)`` is the polish form: for a
 chunk's sorted gate heads, one row each, parallel to the gates.  Bit 5 of
@@ -45,6 +47,9 @@ IUPAC one; the rest of the row is computed at cluster starts (a gate whose
 predecessor in the list is not h - 1, and the list's first gate) whose row
 is valid, with ``row[1]`` = the number of those stride windows that are
 ABSENT (check_missing, the engine's attempt gate), and is zero elsewhere.
+On the card a block takes 512 gates: its threads write bit 5, list the
+cluster starts with a valid row in shared memory and then compute those
+rows as the SNV form does.
 
 ``polish_cand_masks(seq, n, gates, df)`` returns one uint8 per gate head
 (int64, any order): bit c = contains(window at h with its last base set to
@@ -82,7 +87,10 @@ ACGT = b"ACGT"
 # loads a thread of the candidate kernel keeps in flight: 3 alternates x
 # the heads it hashes per batch (csrc kSnvHeadsBlocked, kSnvHeadsPlain)
 CAND_BATCH = {"blocked": 6, "plain": 3}
-SITE_BATCH = 5  # the site kernel's: a window's pristine hash and four alternates
+# the site kernel's: pristine and three alternates of two windows (plain: one)
+SITE_BATCH = {"blocked": 8, "plain": 4}
+SITE_LANES = 4  # lanes it gives an SNV row (csrc kRowLanes)
+POLISH_GATES = 512  # gates a block of its polish form takes (csrc kPolishGates)
 MASK_BATCH = 4  # the mask kernel's: the four bases at the site
 EXACT_GATE = 32  # polish rows: flags bit 5, "device-exact gate"
 # the binned candidate pass: slices of 2^22 filter words (16 MiB), raised
@@ -461,6 +469,19 @@ def build_log() -> str:
         return f.read()
 
 
+def declare_site_rows(lib) -> None:
+    """Declare the site kernel's C interface on a build of the kernels."""
+    filt = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,  # table, modulus, magic
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]           # wbits, layout, hash_num
+    lib.nts_site_rows.restype = ctypes.c_int
+    lib.nts_site_rows.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,   # seq, n, k
+                                  ctypes.c_void_p, ctypes.c_uint64,                 # heads, n_heads
+                                  *filt, ctypes.c_int, ctypes.c_int,                # jump, polish
+                                  ctypes.c_void_p, ctypes.c_void_p]                 # rows, stream
+    lib.nts_error_string.restype = ctypes.c_char_p
+    lib.nts_error_string.argtypes = [ctypes.c_int]
+
+
 def open_library(path: str):
     """Load a build of the kernels and declare its C interface.  Raises
     when it cannot be loaded or its tile or halo differ from the gate
@@ -471,11 +492,9 @@ def open_library(path: str):
     lib.nts_cand_words.restype = ctypes.c_int
     lib.nts_cand_words.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    *filt, ctypes.c_void_p, ctypes.c_void_p]         # out, stream
-    lib.nts_site_rows.restype = ctypes.c_int
-    lib.nts_site_rows.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,   # seq, n, k
-                                  ctypes.c_void_p, ctypes.c_uint64,                 # heads, n_heads
-                                  *filt, ctypes.c_int, ctypes.c_int,                # jump, polish
-                                  ctypes.c_void_p, ctypes.c_void_p]                 # rows, stream
+    declare_site_rows(lib)
+    lib.nts_polish_lanes.restype = ctypes.c_int
+    lib.nts_polish_lanes.argtypes = [ctypes.c_uint32]
     lib.nts_cand_masks.restype = ctypes.c_int
     lib.nts_cand_masks.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    ctypes.c_void_p, ctypes.c_uint64,                # gates, n_gates
@@ -498,16 +517,19 @@ def open_library(path: str):
         getattr(lib, name).argtypes = []
     lib.nts_cand_batch.restype = ctypes.c_int
     lib.nts_cand_batch.argtypes = [ctypes.c_int]
-    lib.nts_mask_batch.restype = ctypes.c_int
-    lib.nts_mask_batch.argtypes = []
-    lib.nts_error_string.restype = ctypes.c_char_p
-    lib.nts_error_string.argtypes = [ctypes.c_int]
+    for name in ("nts_mask_batch", "nts_site_lanes", "nts_polish_gates"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
+    lib.nts_site_batch.restype = ctypes.c_int
+    lib.nts_site_batch.argtypes = [ctypes.c_int]
     if (lib.nts_tile_heads(), lib.nts_halo_bytes()) != (gate_kernel.TILE, gate_kernel.HALO):
         raise RuntimeError("SNV kernel tile/halo differ from the wrapper's")
     if any(lib.nts_cand_batch(LAYOUT_CODE[name]) != b for name, b in CAND_BATCH.items()):
         raise RuntimeError("SNV candidate kernel batch differs from the wrapper's")
-    if lib.nts_mask_batch() != MASK_BATCH:
-        raise RuntimeError("mask kernel batch differs from the wrapper's")
+    if (lib.nts_mask_batch(), lib.nts_site_lanes(), lib.nts_polish_gates()) != (
+            MASK_BATCH, SITE_LANES, POLISH_GATES) or any(
+            lib.nts_site_batch(LAYOUT_CODE[name]) != b for name, b in SITE_BATCH.items()):
+        raise RuntimeError("mask or site kernel batch or lanes differ from the wrapper's")
     if (lib.nts_max_cand_slices(), lib.nts_probe_chunk(), lib.nts_cand_rounds()) != (
             MAX_CAND_SLICES, PROBE_CHUNK, CAND_ROUNDS):
         raise RuntimeError("binned candidate pass slices, probe chunk or rounds differ from the "
@@ -632,10 +654,17 @@ def _check_heads(seq: torch.Tensor, heads: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} need a 1-D int64 head list on the sequence's device")
 
 
+def polish_lanes(rows: int) -> int:
+    """The lanes a block of the polish form gives each of its ``rows``
+    listed rows."""
+    return load_library().nts_polish_lanes(rows)
+
+
 def _site_rows(seq: torch.Tensor, n: int, heads: torch.Tensor, df, jump: int,
-               polish: bool) -> torch.Tensor:
-    """Launch the site kernel (SNV or polish form) on the current stream."""
-    lib = load_library()
+               polish: bool, lib=None) -> torch.Tensor:
+    """Launch the site kernel (SNV or polish form) on the current stream;
+    ``lib`` another build of it (declare_site_rows), for timing."""
+    lib = lib or load_library()
     _check_filter(df)
     _check_seq(seq, df, n + df.k - 1, aligned=False)
     heads = heads.contiguous()
@@ -643,8 +672,7 @@ def _site_rows(seq: torch.Tensor, n: int, heads: torch.Tensor, df, jump: int,
     if not heads.shape[0]:
         return rows
     rc = lib.nts_site_rows(seq.data_ptr(), n, df.k, heads.data_ptr(), heads.shape[0],
-                           *_filter_args(df), jump, int(polish), rows.data_ptr(),
-                           torch.cuda.current_stream(seq.device).cuda_stream)
+                           *_filter_args(df), jump, int(polish), rows.data_ptr(), _stream(seq))
     if rc != 0:
         form = "polish site" if polish else "SNV site"
         raise RuntimeError(f"{form} kernel launch failed: {lib.nts_error_string(rc).decode()}")

@@ -45,6 +45,12 @@ class DenseHashes:
     (``ntb_kmer_hashes``: every window's canonical hash, 0 where invalid,
     and validity words), with that checkout's compaction in torch."""
 
+    @staticmethod
+    def offered(other: str) -> bool:
+        """Whether the checkout at ``other`` still has the dense kernel."""
+        return hasattr(ctypes.CDLL(library_path(other, "build_kernel.cu", "build_kernel_other")),
+                       "ntb_kmer_hashes")
+
     def __init__(self, other: str):
         self.other = other
         lib = ctypes.CDLL(library_path(other, "build_kernel.cu", "build_kernel_other"))
@@ -83,3 +89,17 @@ class CandWords:
                                     out.data_ptr(), torch.cuda.current_stream(seq.device).cuda_stream),
             "nts_cand_words", self.other)
         return out
+
+
+class SiteRows:
+    """The site-row kernel of another checkout (``nts_site_rows``, both
+    forms, the C interface of this checkout's)."""
+
+    def __init__(self, other: str):
+        self.other = other
+        self.lib = ctypes.CDLL(library_path(other, "snv_kernel.cu", "snv_kernel_other"))
+        snv_kernel.declare_site_rows(self.lib)
+
+    def rows(self, seq: torch.Tensor, n: int, heads: torch.Tensor, df, jump: int,
+             polish: bool) -> torch.Tensor:
+        return snv_kernel._site_rows(seq, n, heads, df, jump, polish, self.lib)

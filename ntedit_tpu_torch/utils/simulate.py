@@ -150,3 +150,36 @@ def chunk_filters(truth: np.ndarray, k: int, genome: int, seed: int = 34) -> dic
         else:
             arr[fill] |= (1 << rng.integers(0, 8 * arr.itemsize, size=fill.size)).astype(arr.dtype)
     return filters
+
+
+SITE_LIST_SPAN = 1600  # heads the middle lists of ``site_lists`` span past ``at``
+
+
+def site_lists(n: int, k: int, at: int) -> dict:
+    """Sorted int64 head lists that exercise the site kernels' index logic
+    on a contig of ``n`` heads (n + k - 1 bytes); the middle ones lie in
+    [at, at + SITE_LIST_SPAN):
+
+    * ``all_starts``: 601 heads 2 or 3 apart, every one a cluster start;
+    * ``long_cluster``: a cluster of 300 heads between isolated ones;
+    * ``block_edges``: cluster starts at list index 0, 255-258 and 511-514
+      (clusters of 255 and 253 heads, each followed by three isolated
+      ones, then a cluster of 40): a polish block takes 512 gates, two a
+      thread, 256 apart;
+    * ``overlapping``: neighbours k to 2k - 1 apart, whose [h, h + 2k)
+      overlap (each one a substitution's SNV candidate);
+    * ``ends_at``: h + 2k = n, and h + 2k = n + k - 1 (the contig's last
+      byte: the last valid row);
+    * ``ends_past``: h + 2k = n + 1, and n + k (one byte past the contig)."""
+    lists = {
+        "all_starts": at + np.concatenate([[0], np.cumsum(np.resize([2, 3], 600))]),
+        "long_cluster": np.concatenate([at + np.array([0, 3]), at + 10 + np.arange(300),
+                                        at + 320 + np.array([0, 4])]),
+        "block_edges": np.concatenate([at + np.arange(255), at + 260 + 3 * np.arange(3),
+                                       at + 270 + np.arange(253), at + 526 + 3 * np.arange(3),
+                                       at + 540 + np.arange(40)]),
+        "overlapping": at + np.cumsum([0, k, k + 1, 2 * k - 1, k]),
+        "ends_at": np.array([n - 2 * k, n - k - 1]),
+        "ends_past": np.array([n - 2 * k + 1, n - k]),
+    }
+    return {name: h.astype(np.int64) for name, h in lists.items()}

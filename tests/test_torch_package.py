@@ -17,6 +17,7 @@ from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine import flag
 from ntedit_tpu_torch.engine.polish import Polisher
 from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+from ntedit_tpu_torch.utils import simulate
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "ntedit_tpu"}
@@ -245,6 +246,11 @@ def test_snv_site_kernel_matches_plain_on_the_card(layout, k, jump):
     got = snv_kernel.snv_site_rows(seq, n, cand, df, jump)
     assert torch.equal(got, snv_kernel.snv_site_rows_plain(seq, n, cand, df, jump))
     assert int((got[:, 0] & 1).sum()) > 0 and int((got[:, 0] == 0).sum()) > 0
+    # the index lists of simulate.site_lists, one launch each
+    for name, heads in simulate.site_lists(n, k, at=8000).items():
+        heads = torch.from_numpy(heads).cuda()
+        got = snv_kernel.snv_site_rows(seq, n, heads, df, jump)
+        assert torch.equal(got, snv_kernel.snv_site_rows_plain(seq, n, heads, df, jump)), name
 
 
 @pytest.mark.cuda
@@ -267,6 +273,10 @@ def test_polish_kernels_match_plain_on_the_card(layout, k, jump):
     rows = snv_kernel.polish_site_rows(seq, n, gates, df, jump)
     assert torch.equal(rows, snv_kernel.polish_site_rows_plain(seq, n, gates, df, jump))
     assert int((rows[:, 0] & 1).sum()) > 0 and int((rows[:, 0] & 32 == 0).sum()) > 0
+    for name, heads in simulate.site_lists(n, k, at=8000).items():
+        heads = torch.from_numpy(heads).cuda()
+        got = snv_kernel.polish_site_rows(seq, n, heads, df, jump)
+        assert torch.equal(got, snv_kernel.polish_site_rows_plain(seq, n, heads, df, jump)), name
     masks = snv_kernel.polish_cand_masks(seq, n, gates, df)
     assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df))
     assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0

@@ -201,6 +201,62 @@ def test_site_chunks_across_seams():
         assert rows[i, 0] & 1 == 1 and whole[i, 0] & 1 == 0
 
 
+def list_workload(truth, k, heads):
+    """(draft, JAX DeviceFilter, torch DeviceFilter): the draft is ``truth``
+    around ``heads`` and N elsewhere; the filters (blocked, the first
+    case's shape) hold the k-mers of that stretch but those at ``heads``,
+    so the gates are exactly ``heads`` (the N windows are no gates, and a
+    few thousand k-mers leave the filter all but free of false positives)."""
+    lo, hi = max(int(heads[0]) - 2 * k, 0), min(int(heads[-1]) + 3 * k, len(truth))
+    draft = np.full(len(truth), ord("N"), dtype=np.uint8)
+    draft[lo:hi] = truth[lo:hi]
+    f = jbloom.BlockedKmerBloomFilter.zeros(1 << 18, 3, k)
+    keep = np.zeros(len(truth) - k + 1, dtype=np.int8)
+    keep[lo : hi - k + 1] = 1
+    keep[heads] = 0
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], keep, [0]])))
+    for a, b in zip(edges[::2], edges[1::2]):  # the kept heads [a, b)
+        f.insert_seq(truth[a : b + k - 1])
+    _, tdf = convert.filter_from_numpy("blocked", f.words, 3, k, device="cpu")
+    return draft, jbloom.DeviceFilter.from_host(f), tdf
+
+
+@pytest.mark.parametrize("name", ["all_starts", "long_cluster", "block_edges", "ends_at",
+                                  "ends_past"])
+def test_rows_match_jax_on_index_lists(name, monkeypatch):
+    """The gate list is one of simulate.site_lists (list_workload): every
+    gate a cluster start, a cluster of 300 gates, starts at list index 0,
+    255-258 and 511-514, rows with h + 2k at n and n + 1 and past the
+    contig's last byte.  The port's rows equal the JAX package's at every
+    gate, and a row is valid exactly at the cluster starts whose scan fits
+    the contig."""
+    k, jump = 25, 3
+    truth = simulate.random_genome(LENGTH, seed=77)
+    n = LENGTH - k + 1
+    heads = tsimulate.site_lists(n, k, at=1000)[name]
+    draft, jdf, tdf = list_workload(truth, k, heads)
+    # the JAX package caches a packed draft by its id and its first, middle
+    # and last 64 bytes, which these drafts share (all N)
+    monkeypatch.setenv("NTEDIT_TPU_NO_PACK_CACHE", "1")
+    want = stream(jflag.iter_polish_site_chunks(draft, jdf, jump, chunk=CHUNK))
+    got = stream(tflag.iter_polish_site_chunks(draft, tdf, jump, chunk=CHUNK))
+    g = np.concatenate([x[1] for x in got])
+    np.testing.assert_array_equal(g, heads)
+    np.testing.assert_array_equal(g, np.concatenate([x[1] for x in want]))
+    rows = np.concatenate([x[2] for x in got])
+    np.testing.assert_array_equal(rows, np.concatenate([x[2] for x in want]))
+    start = np.ones(len(g), dtype=bool)
+    start[1:] = g[1:] != g[:-1] + 1
+    np.testing.assert_array_equal(rows[:, 0] & 1 == 1, start & (g <= n - k - 1))
+    assert (rows[:, 0] & 32 == 32).all()
+    if name == "all_starts":
+        assert start.all()
+    elif name == "block_edges":
+        assert np.flatnonzero(start).tolist() == [0, 255, 256, 257, 258, 511, 512, 513, 514]
+    elif name == "long_cluster":
+        assert np.diff(np.flatnonzero(start)).max() == 300
+
+
 @pytest.mark.parametrize("layout", ["blocked", "plain"])
 def test_masks_match_jax(layout):
     k = 25

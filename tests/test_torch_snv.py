@@ -21,6 +21,7 @@ from ntedit_tpu_torch import convert
 from ntedit_tpu_torch.core import bloom as tbloom
 from ntedit_tpu_torch.engine import flag as tflag
 from ntedit_tpu_torch.ops import snv_kernel
+from ntedit_tpu_torch.utils import simulate as tsimulate
 
 CHUNK = 1 << 15
 LENGTH = 70_000  # more than two chunks of heads
@@ -118,6 +119,34 @@ def test_site_data_matches_jax(layout, k, jump, phase):
     # a true variant: its base in the filter's genome is verified by every stride
     strides = len(range(0, k, jump))
     assert (got_rows[valid, 2:].max(axis=1) == strides).sum() >= 50
+
+
+@pytest.mark.parametrize("end", ["ends_at", "ends_past"])
+def test_site_data_matches_jax_on_index_lists(end, monkeypatch):
+    """Candidates planted as simulate.site_lists' ``overlapping`` heads
+    (k to 2k - 1 apart, so their [h, h + 2k) overlap; the filter's false
+    positives add candidates between them) and the first head of ``end``
+    (h + 2k = n, or n + 1): the rows equal the JAX package's, and each
+    planted row is valid."""
+    k, jump = 25, 3
+    variant = simulate.random_genome(LENGTH, seed=41)
+    n = LENGTH - k + 1
+    lists = tsimulate.site_lists(n, k, at=1000)
+    planted = np.concatenate([lists["overlapping"], lists[end][:1]])
+    draft = variant.copy()
+    for h in planted:
+        draft[h + k - 1] = other_base(variant[h + k - 1])
+    jdf, tdf = filters("blocked", k, variant)  # test_site_data_matches_jax's compiled program
+    # the JAX package caches a packed draft by its id and 192 of its bytes
+    monkeypatch.setenv("NTEDIT_TPU_NO_PACK_CACHE", "1")
+    want_cand, want_rows = jflag.snv_site_data(draft, jdf, jump, chunk=CHUNK)
+    got_cand, got_rows = tflag.snv_site_data(draft, tdf, jump, chunk=CHUNK)
+    np.testing.assert_array_equal(got_cand, want_cand)
+    np.testing.assert_array_equal(got_rows, want_rows)
+    at = np.searchsorted(got_cand, planted)
+    np.testing.assert_array_equal(got_cand[at], planted)
+    assert (np.diff(planted[:-1]) < 2 * k).all()  # their scans overlap
+    assert (got_rows[at, 0] & 1 == 1).all()
 
 
 def test_rows_at_the_stricter_validity():
