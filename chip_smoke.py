@@ -9,8 +9,9 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build    - builds the CUDA kernels (nvcc: the gate kernel, the SNV
-              kernels and the filter-build kernels) and the host repair
-              library (g++) from the sources in this checkout, side by side.
+              kernels and the filter-build kernels), the host repair
+              library and the batch reader (g++, zlib: its version) from
+              the sources in this checkout, side by side.
    Then the kernels' registers, shared memory and spills (nvcc -Xptxas -v)
    and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 2. kernel   - the gate kernel against its plain torch version on the card,
@@ -85,13 +86,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
               kernels into a blocked filter, then the engine), its .hist
               held to the histogram of the plain hashes, its filter to a
               whole build by the plain versions on the card, its outputs to
-              the host-only full scan, and its stages one at a time;
-              ``polish --reads R --cbf -p 2 -q 254`` (a counting filter of
-              374 M slots) held the same way; ``make-genome-bf`` on
-              the 50 Mbp draft of phase 3 (a btllib-sized plain filter) held
-              to the plain build; and ``snv --reference REF --genome SAMPLE``
-              on the 5 Mbp contig of phase 5, its outputs held to the
-              host-only full SNV scan on the filter it built.
+              the host-only full scan, and its stages one at a time; the
+              reads read once by the batch reader (each file opened once,
+              the pieces kept on the card: ``reads`` with ``read_s``, the
+              kept bytes and the passes), and a build with budget 0 (each
+              pass reads them again) byte-equal to the kept build and to
+              the plain one; ``polish --reads R --cbf -p 2 -q 254`` (a
+              counting filter of 374 M slots) held the same way;
+              ``make-genome-bf`` on the 50 Mbp draft of phase 3 (a
+              btllib-sized plain filter), its genome read once, held to the
+              plain build; and ``snv --reference REF --genome SAMPLE`` on
+              the 5 Mbp contig of phase 5, its outputs held to the host-only
+              full SNV scan on the filter it built.
 7. numbers  - the gate pass alone at the main path's chunk shape (CUDA
               events, L2 flushed between launches), its plain version, a
               torch.take gather of as many random words as a yardstick, the
@@ -113,6 +119,27 @@ Phases, each printing one JSON line; any failure exits nonzero:
               and its dense hashes kernel (alone, with its compaction, and
               its histogram pass) in turns on the same inputs (DIR's
               site-row kernel: phases 3 and 5).
+8. engines  - (run after phase 2, before phase 3; its traced run is then
+              the process's first profiler session) the engines beside
+              the native repair, with a 256 MiB
+              blocked filter and a plain filter at phase 3's sizes holding
+              the truth: ``Polisher(engine="wavefront")`` on a seeded 4.7
+              Mbp contig (a bacterial genome) in polish mode (the gate
+              kernel's hint) and on a 500 kbp draft in SNV mode (the
+              candidate kernels' heads; there it commits one site a
+              round, its time growing with the square of the length);
+              ``engine="sequential"`` through the command line's function
+              and ``engine -v 1`` on a 500 kbp draft, the -v stdout equal to
+              the trace the same Oracle prints over the hint of the gate
+              kernel's plain version (and with the scalar site path, which
+              prints every trial, through the API); the fallback after a
+              failed native repair (the repair functions replaced by ones
+              that return None) in polish and SNV mode; and
+              ``NTEDIT_TPU_TRACE`` on one ``engine`` run of the 4.7 Mbp
+              contig: its Chrome trace names the gate kernel, and the
+              device's busy share of the trace.  Every run's three files
+              equal the host-only full scan's; each reports its wall and its
+              gate and candidate launches.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -225,7 +252,10 @@ def census(edited: np.ndarray, truth: np.ndarray, window: int = 30, max_skew: in
 def phase_build() -> dict:
     import torch
 
+    import ctypes
+
     from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.io import native
     from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
 
     if not torch.cuda.is_available():
@@ -236,13 +266,18 @@ def phase_build() -> dict:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=4) as ex:  # three nvcc and g++ side by side
+    with ThreadPoolExecutor(max_workers=5) as ex:  # three nvcc and two g++ side by side
         jobs = {"gate_kernel_s": ex.submit(timed, gate_kernel.load_library),
                 "snv_kernel_s": ex.submit(timed, snv_kernel.load_library),
                 "build_kernel_s": ex.submit(timed, build_kernel.load_library),
-                "repair_s": ex.submit(timed, native_repair.get_lib)}
+                "repair_s": ex.submit(timed, native_repair.get_lib),
+                "reader_s": ex.submit(timed, native.get_lib)}
         times = {name: job.result() for name, job in jobs.items()}
-    return {"phase": "build", **times, "device": torch.cuda.get_device_name(0)}
+    # the batch reader links zlib (a failed build raised with g++'s output)
+    zlib_version = native.get_lib().zlibVersion
+    zlib_version.restype = ctypes.c_char_p
+    return {"phase": "build", **times, "reader_zlib": zlib_version().decode(),
+            "device": torch.cuda.get_device_name(0)}
 
 
 _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked",
@@ -1289,6 +1324,39 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def reads_of(run) -> tuple:
+    """``run()`` with the reader's opens counted from 0 and every
+    bfbuild.DeviceBatches it makes recorded: (its result, the batches
+    made, the opens of each path)."""
+    from ntedit_tpu_torch.core import bfbuild
+    from ntedit_tpu_torch.io import native
+
+    made = []
+    real = bfbuild.device_batches
+
+    def record(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    native.read_batches.opens.clear()
+    bfbuild.device_batches = record
+    try:
+        got = run()
+    finally:
+        bfbuild.device_batches = real
+    return got, made, dict(native.read_batches.opens)
+
+
+def reads_row(made: list, opens: dict, paths: list) -> dict:
+    """The read of ``paths`` by one command: each file's opens (1 when the
+    pieces stayed on the device), the host seconds of the reader (reading,
+    joining and cutting pieces), the passes and the bytes kept."""
+    return {"opens": {os.path.basename(p): opens.get(p, 0) for p in paths},
+            "read_s": sum(b.read_s for b in made), "passes": sum(b.passes for b in made),
+            "kept_bytes": sum(b.kept_bytes for b in made),
+            "budget_bytes": [b.budget for b in made]}
+
+
 def run_cli(argv: list, cwd: str) -> tuple:
     """``python -m ntedit_tpu_torch`` in process from ``cwd``, on the card:
     (wall seconds, the kernels' launches, peak device memory).  The launch
@@ -1424,8 +1492,12 @@ def phase_filter_build(work: str, against=None) -> dict:
     out["reads"] = len(truth) * COVERAGE // READ_LEN
 
     # polish --reads: the main path of the build, blocked, cutoff 2
-    wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
-                                    str(k), "-t", "8", "-b", os.path.join(work, "fb")], work)
+    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+        ["polish", "--draft", draft_path, "--reads", prefix, "-k", str(k), "-t", "8", "-b",
+         os.path.join(work, "fb")], work))
+    reads = reads_row(made, opens, read_files)
+    if set(reads["opens"].values()) != {1}:
+        raise AssertionError(f"polish --reads read its reads more than once: {reads}")
     for name in ("kmer_valid_hashes", "kmer_partition", "kmer_count_apply", "kmer_solid_bits",
                  "kmer_insert", "gate_words"):
         if launches[name] <= 0:
@@ -1451,6 +1523,16 @@ def phase_filter_build(work: str, against=None) -> dict:
     nbits, slots, cbf_slots = bfbuild.filter_sizes(hist, 2)
     _, words = plain_build(pieces, k, 3, nbits, slots, "blocked", 2)
     same_bf = isinstance(bf, bloom.BlockedKmerBloomFilter) and np.array_equal(bf.words, words)
+    # the same build with budget 0: each pass reads the reads again
+    t0 = time.perf_counter()
+    (again, _, _), _, reread_opens = reads_of(lambda: bfbuild.build_read_filter(
+        read_files, k, cutoff=2, hist=hist, device=dev, budget=0))
+    torch.cuda.synchronize()
+    reread = {"wall_s": time.perf_counter() - t0,
+              "opens": {os.path.basename(p): reread_opens.get(p, 0) for p in read_files},
+              "filter_equals_kept": np.array_equal(again.words, bf.words),
+              "filter_equals_plain": np.array_equal(again.words, words)}
+    del again
     cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
     ref_prefix = os.path.join(work, "fb_ref")
     t0 = time.perf_counter()
@@ -1458,13 +1540,16 @@ def phase_filter_build(work: str, against=None) -> dict:
     ref_s = time.perf_counter() - t0
     same = _same_outputs(os.path.join(work, f"fb_ntedit_k{k}"), ref_prefix)
     out["polish_reads"] = {
-        "wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+        "wall_s": wall, "reads": reads, "read_pass_s": read_s, "reread": reread,
+        "launches": launches, "max_memory_allocated": peak,
         "f1": hist.f1, "f0": hist.f0, "cutoff": 2, "filter_bytes": bf.bytes,
         "count_slots": slots, "hist_equals_plain": same_hist, "filter_equals_plain": same_bf,
         "solid_read_kmers_absent": absent, "genome_kmers_absent": truth_absent,
         "reference_full_scan_s": ref_s, "byte_identical": same,
         "split": read_filter_split(pieces, read_s, draft_path, work, k)}
-    if not (same_hist and same_bf and all(same.values())) or absent:
+    if not (same_hist and same_bf and all(same.values())) or absent \
+            or not (reread["filter_equals_kept"] and reread["filter_equals_plain"]) \
+            or set(reread["opens"].values()) != {2}:
         raise AssertionError(f"polish --reads: {out['polish_reads']}")
     del bf
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
@@ -1473,9 +1558,10 @@ def phase_filter_build(work: str, against=None) -> dict:
     torch.cuda.empty_cache()
 
     # polish --reads --cbf: the counting filter of every valid k-mer
-    wall, launches, peak = run_cli(["polish", "--draft", draft_path, "--reads", prefix, "-k",
-                                    str(k), "-t", "8", "--cbf", "-p", "2", "-q", "254", "-b",
-                                    os.path.join(work, "fbc")], work)
+    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+        ["polish", "--draft", draft_path, "--reads", prefix, "-k", str(k), "-t", "8", "--cbf",
+         "-p", "2", "-q", "254", "-b", os.path.join(work, "fbc")], work))
+    cbf_reads = reads_row(made, opens, read_files)
     if min(launches[name] for name in ("kmer_partition", "kmer_count_apply", "gate_words")) <= 0:
         raise AssertionError(f"polish --cbf never launched its kernels: {launches}")
     cbf = bloom.load_any(f"{prefix}_k{k}.cbf")
@@ -1486,10 +1572,11 @@ def phase_filter_build(work: str, against=None) -> dict:
     ref_prefix = os.path.join(work, "fbc_ref")
     reference_outputs(cbf, draft_path, ref_prefix, cfg)
     same = _same_outputs(os.path.join(work, f"fbc_ntedit_k{k}"), ref_prefix)
-    out["polish_cbf"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+    out["polish_cbf"] = {"wall_s": wall, "reads": cbf_reads, "launches": launches,
+                         "max_memory_allocated": peak,
                          "slots": cbf.bytes, "filter_equals_plain": same_cbf,
                          "byte_identical": same}
-    if not (same_cbf and all(same.values())):
+    if not (same_cbf and all(same.values())) or set(cbf_reads["opens"].values()) != {1}:
         raise AssertionError(f"polish --cbf: {out['polish_cbf']}")
     del cbf, pieces
     torch.cuda.empty_cache()
@@ -1497,25 +1584,29 @@ def phase_filter_build(work: str, against=None) -> dict:
     # make-genome-bf on phase 3's 50 Mbp draft: btllib size, plain layout
     genome_path = os.path.join(work, "draft50.fa")
     bf_path = os.path.join(work, "genome50.bf")
-    wall, launches, peak = run_cli(["make-genome-bf", "--genome", genome_path, "-k", str(k),
-                                    "--fpr", "0.01", "-o", bf_path], work)
+    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+        ["make-genome-bf", "--genome", genome_path, "-k", str(k), "--fpr", "0.01", "-o",
+         bf_path], work))
+    genome_reads = reads_row(made, opens, [genome_path])
     if launches["kmer_insert"] <= 0:
         raise AssertionError(f"make-genome-bf never launched kmer_insert: {launches}")
     gbf = bloom.load_any(bf_path)
     _, words = plain_build(list(bfbuild.iter_separated_buffers([genome_path], k)), k, 3,
                            gbf.bits, 0, "plain", 1)
     same_gbf = np.array_equal(gbf.data, words.view(np.uint8)[: gbf.bytes])
-    out["make_genome_bf"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
-                             "filter_bytes": gbf.bytes, "filter_equals_plain": same_gbf}
-    if not same_gbf:
+    out["make_genome_bf"] = {"wall_s": wall, "reads": genome_reads, "launches": launches,
+                             "max_memory_allocated": peak, "filter_bytes": gbf.bytes,
+                             "filter_equals_plain": same_gbf}
+    if not same_gbf or genome_reads["opens"][os.path.basename(genome_path)] != 1:
         raise AssertionError(f"make-genome-bf: {out['make_genome_bf']}")
     del gbf, words
 
     # snv --genome on phase 5's 5 Mbp contig and its sample
     # the artifacts land in the working directory, named after the genome
     ref_path, sample_path = os.path.join(work, "ref5.fa"), os.path.join(work, "sample5.fa")
-    wall, launches, peak = run_cli(["snv", "--reference", ref_path, "--genome", sample_path,
-                                    "-k", str(k), "-t", "8"], work)
+    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+        ["snv", "--reference", ref_path, "--genome", sample_path, "-k", str(k), "-t", "8"], work))
+    sample_reads = reads_row(made, opens, [sample_path])
     for name in ("kmer_valid_hashes", "kmer_insert", "snv_cand_words", "snv_site_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"snv --genome never launched {name}: {launches}")
@@ -1529,10 +1620,12 @@ def phase_filter_build(work: str, against=None) -> dict:
     same = _same_outputs(os.path.join(work, f"sample5_ntedit_k{k}"), ref_prefix)
     with open(os.path.join(work, f"sample5_ntedit_k{k}_changes.tsv")) as f:
         records = sum(1 for _ in f) - 1
-    out["snv_genome"] = {"wall_s": wall, "launches": launches, "max_memory_allocated": peak,
+    out["snv_genome"] = {"wall_s": wall, "reads": sample_reads, "launches": launches,
+                         "max_memory_allocated": peak,
                          "filter_bytes": sbf.bytes, "filter_equals_plain": same_sbf,
                          "records": records, "byte_identical": same}
-    if not (same_sbf and all(same.values())) or records <= 0:
+    if not (same_sbf and all(same.values())) or records <= 0 \
+            or sample_reads["opens"][os.path.basename(sample_path)] != 1:
         raise AssertionError(f"snv --genome: {out['snv_genome']}")
     return out
 
@@ -1548,6 +1641,263 @@ def _padded(seq: np.ndarray, k: int, dev) -> tuple:
     buf[: len(seq)] = torch.from_numpy(seq)
     return buf.to(dev), n, k
 
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the wavefront and sequential engines, -v, the fallback, the trace
+# ---------------------------------------------------------------------------
+
+ENGINE_CONTIG = 4_700_000  # bases of the polish-mode wavefront's contig: a bacterial genome
+# bases of the SNV wavefront's, the sequential, -v and fallback runs' draft: in
+# SNV mode every head gates, so no zone re-flag is quiet and the wavefront
+# commits one leader a round (about 13 s a Mbp, growing with the square)
+SEQ_DRAFT = 500_000
+
+
+def _cand_launches(launches: dict) -> int:
+    return launches["snv_cand_words"] + launches["snv_cand_bin"] + launches["snv_cand_probe"]
+
+
+def polish_api(tag: str, work: str, pol, draft_path: str, ref_prefix: str) -> dict:
+    """Polisher.polish over the draft through the Python API, rendered by
+    the command line's writers and held on all three files to the
+    host-only full scan at ``ref_prefix``.  The launch counts are set to 0
+    just before the run and read just after."""
+    from ntedit_tpu_torch.io import fastx, writers
+
+    cfg = pol.cfg
+    prefix = os.path.join(work, tag)
+    records = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    with open(prefix + "_edited.fa", "w") as dfout, \
+         open(prefix + "_changes.tsv", "w") as rfout, \
+         open(prefix + "_variants.vcf", "w") as vfout:
+        rfout.write(writers.changes_tsv_header(cfg.k, cfg.jump, False))
+        vfout.write(writers.vcf_header(draft_path))
+        for res in pol.polish((r.header, r.seq) for r in fastx.read_fastx(draft_path)):
+            writers.write_contig(res, dfout, rfout, vfout, {}, snv=cfg.snv)
+            records += len(res.subs)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    same = _same_outputs(prefix, ref_prefix)
+    out = {"engine": pol.engine, "snv": cfg.snv, "wall_s": wall, "records": records,
+           "gate_launches": launches["gate_words"], "cand_launches": _cand_launches(launches),
+           "byte_identical": same}
+    if not all(same.values()) or records <= 0:
+        raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {out}")
+    return out
+
+
+def trace_numbers(path: str) -> dict:
+    """A Chrome trace of torch.profiler: its device events (kernels,
+    copies, sets), their busy time (overlaps merged) against the span of
+    the whole trace, and whether the gate kernel is named in it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in device:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = (max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)) \
+        if events else 0.0
+    categories: dict = {}
+    for e in events:
+        categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
+    return {"trace_bytes": os.path.getsize(path), "events": len(events), "categories": categories,
+            "device_events": len(device), "device_busy_s": busy / 1e6, "span_s": span / 1e6,
+            "device_busy_share": busy / span if span else None,
+            "names_gate_kernel": any("gate_words_kernel" in e.get("name", "") for e in events)}
+
+
+def phase_engines(work: str, device: str = "cuda") -> dict:
+    """The engines beside the native repair, on a 4.7 Mbp contig and a
+    500 kbp draft, with a 256 MiB blocked filter and a plain filter at the
+    sizes of phase 3 holding their truth: ``Polisher(engine="wavefront")``
+    in polish mode (4.7 Mbp) and in SNV mode (500 kbp);
+    ``engine="sequential"`` and ``engine
+    -v 1`` through the command line's function; the fallback after a
+    failed native repair (the repair functions replaced by ones returning
+    None) in both modes; and ``NTEDIT_TPU_TRACE`` on one ``engine`` run of
+    the 4.7 Mbp contig.  Every run's three files equal the host-only full
+    scan's; the -v stdout equals the trace the same Oracle prints with
+    the gate hint of the gate kernel's plain version."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ntedit_tpu_torch import cli
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.engine import flag, native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.oracle import Oracle
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx
+    from ntedit_tpu_torch.ops import gate_kernel
+    from ntedit_tpu_torch.utils import profiling
+
+    k = 25
+    dev = torch.device(device)
+    out = {"phase": "engines", "contig_bp": ENGINE_CONTIG, "draft_bp": SEQ_DRAFT}
+    t0 = time.perf_counter()
+    truths, drafts = make_genome([ENGINE_CONTIG, SEQ_DRAFT], seed=1300)
+    big_path, small_path = os.path.join(work, "eng47.fa"), os.path.join(work, "eng05.fa")
+    write_fasta(big_path, drafts[:1])
+    write_fasta(small_path, drafts[1:])
+    blk = bloom.BlockedKmerBloomFilter.zeros(bloom.pow2_size_bytes(GENOME, 3, 0.001), 3, k)
+    pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(GENOME, 3, 0.001), 3, k)
+    for t in truths:
+        blk.insert_seq(t)
+        pl.insert_seq(t)
+    blk_path, pl_path = os.path.join(work, "eng_blk.bf"), os.path.join(work, "eng_pl.bf")
+    blk.save(blk_path)
+    pl.save(pl_path)
+    out["setup_s"] = time.perf_counter() - t0
+    out["filter_bytes"] = {"blocked": blk.bytes, "plain": pl.bytes}
+
+    def reference(tag, host_bf, draft_path, **cfg_kw):
+        prefix = os.path.join(work, tag)
+        t0 = time.perf_counter()
+        reference_outputs(host_bf, draft_path, prefix, EngineConfig(
+            k=k, hash_num=3, threads=1, **cfg_kw).validate())
+        out.setdefault("reference_full_scan_s", {})[tag] = time.perf_counter() - t0
+        return prefix
+
+    refs = {"big": reference("eng_ref47", blk, big_path),
+            "small": reference("eng_ref05", pl, small_path),
+            "small_snv": reference("eng_ref05_snv", pl, small_path, snv=True)}
+
+    # the wavefront engine: polish mode on the bacterial genome (the gate
+    # kernel's hint), SNV mode on the draft (the candidate kernels' heads)
+    for tag, snv, host_bf, path, ref in (
+            ("wavefront", False, blk, big_path, refs["big"]),
+            ("wavefront_snv", True, pl, small_path, refs["small_snv"])):
+        cfg = EngineConfig(k=k, hash_num=3, threads=8, snv=snv).validate()
+        pol = Polisher(host_bf, None, cfg, device=dev, engine="wavefront")
+        out[tag] = polish_api(tag, work, pol, path, ref)
+        kernel = "cand_launches" if snv else "gate_launches"
+        if out[tag][kernel] <= 0:
+            raise AssertionError(f"{tag}: its device pass was never launched: {out[tag]}")
+        del pol
+
+    # the sequential engine through the command line's function
+    prefix = os.path.join(work, "sequential")
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli._run_engine(pl_path, small_path, prefix, threads=8, device=device,
+                        engine="sequential")
+    launches = kernel_launches()
+    out["sequential"] = {"wall_s": time.perf_counter() - t0,
+                         "gate_launches": launches["gate_words"],
+                         "byte_identical": _same_outputs(prefix, refs["small"])}
+    if not all(out["sequential"]["byte_identical"].values()) or launches["gate_words"] <= 0:
+        raise AssertionError(f"sequential: {out['sequential']}")
+
+    # engine -v 1: its stdout against the Oracle's trace over the plain gate hint
+    prefix = os.path.join(work, "verbose")
+    stdout = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        cli.main(["engine", "-r", pl_path, "-f", small_path, "-b", prefix, "-t", "8", "-v", "1",
+                  "--device", device])
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    lines = stdout.getvalue().splitlines()
+    got = "\n".join(l for l in lines[lines.index(" -v 1") + 1:] if not l.startswith("engine: "))
+    df = bloom.DeviceFilter.from_host(pl, dev)
+    cfg = EngineConfig(k=k, hash_num=3, threads=8, verbose=True).validate()
+    hints = []  # the gate kernel's plain version's hint of each contig
+    for rec in fastx.read_fastx(small_path):
+        seq_dev, n, _ = _padded(rec.seq, k, dev)
+        words = gate_kernel.gate_words_plain(seq_dev, n, df, False, 1)
+        hints.append((rec, flag.packed_to_positions(words.cpu().numpy().view(np.uint32), n)))
+    hint_same = all(np.array_equal(h, flag.flag_contig_gates(r.seq, df)) for r, h in hints)
+    del df
+
+    def oracle_trace(fast: bool, headers: bool) -> str:
+        """What the Oracle prints over the plain hints, each contig's trace
+        after its header when ``headers`` (as the command line prints)."""
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            for rec, hint in hints:
+                if headers:
+                    print(rec.header)
+                Oracle(pl, None, cfg, fast=fast).polish_contig(rec.header, bytes(rec.seq),
+                                                               gate_hint=hint)
+        return text.getvalue()
+
+    want = oracle_trace(True, True).rstrip("\n")
+    out["verbose"] = {"wall_s": wall, "gate_launches": launches["gate_words"],
+                      "stdout_lines": len(lines), "trace_lines": got.count("check_present"),
+                      "stdout_equals_oracle_trace": got == want,
+                      "plain_hint_equals_kernel_hint": bool(hint_same),
+                      "byte_identical": _same_outputs(prefix, refs["small"])}
+    if not (got == want and hint_same and all(out["verbose"]["byte_identical"].values())) \
+            or launches["gate_words"] <= 0:
+        raise AssertionError(f"engine -v 1: {out['verbose']}")
+    # the batched site fixer takes most sites silently (as in the JAX
+    # package): -v with the scalar site path prints every trial
+    stdout = io.StringIO()
+    pol = Polisher(pl, None, cfg, device=dev, fast_sites=False)
+    with contextlib.redirect_stdout(stdout):
+        scalar = polish_api("verbose_scalar", work, pol, small_path, refs["small"])
+    want = oracle_trace(False, False)
+    scalar.update(trace_lines=stdout.getvalue().count("check_present"),
+                  stdout_equals_oracle_trace=stdout.getvalue() == want)
+    out["verbose_scalar"] = scalar
+    if not scalar["stdout_equals_oracle_trace"] or scalar["trace_lines"] <= 0 \
+            or scalar["gate_launches"] <= 0:
+        raise AssertionError(f"-v with the scalar site path: {scalar}")
+
+    # the fallback: every native and segmented repair returns None
+    real = {name: getattr(native_repair, name) for name in (
+        "polish_contig_pipelined", "polish_contig_native", "polish_contig_segmented")}
+    try:
+        for name in real:
+            setattr(native_repair, name, lambda *a, **kw: None)
+        for tag, snv in (("fallback", False), ("fallback_snv", True)):
+            cfg = EngineConfig(k=k, hash_num=3, threads=8, snv=snv).validate()
+            pol = Polisher(pl, None, cfg, device=dev)
+            out[tag] = polish_api(tag, work, pol, small_path,
+                                  refs["small_snv" if snv else "small"])
+            if out[tag]["cand_launches" if snv else "gate_launches"] <= 0:
+                raise AssertionError(f"{tag}: its device pass was never launched: {out[tag]}")
+    finally:
+        for name, fn in real.items():
+            setattr(native_repair, name, fn)
+
+    # NTEDIT_TPU_TRACE on the default engine run of the bacterial genome
+    logdir = os.path.join(work, "trace")
+    prefix = os.path.join(work, "traced")
+    os.environ[profiling.TRACE_ENV] = logdir
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["engine", "-r", blk_path, "-f", big_path, "-b", prefix, "-t", "8",
+                      "--device", device])
+    finally:
+        del os.environ[profiling.TRACE_ENV]
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
+    out["traced"] = {"wall_s": wall, "gate_launches": kernel_launches()["gate_words"],
+                     "trace_files": len(files),
+                     "byte_identical": _same_outputs(prefix, refs["big"])}
+    if len(files) != 1:
+        raise AssertionError(f"NTEDIT_TPU_TRACE: no single trace file in {logdir}: {files}")
+    out["traced"].update(trace_numbers(os.path.join(logdir, files[0])))
+    if not (out["traced"]["names_gate_kernel"] and all(out["traced"]["byte_identical"].values())):
+        raise AssertionError(f"NTEDIT_TPU_TRACE: {out['traced']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2047,6 +2397,8 @@ def main(argv=None) -> int:
     emit(kernel)
     main_rows = []
     with tempfile.TemporaryDirectory(prefix="ntedit_smoke_") as work:
+        emit(timed("engines", phase_engines, work))
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for row in timed("main", phase_main, work, against):
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()

@@ -16,9 +16,13 @@ The JAX package's four subcommands, on the card unless ``--device cpu``:
 
 Every subcommand takes ``--spill auto|on|off`` (default auto: on for drafts
 above 256 MB): the per-contig record spill of io/spill.py, so that a killed
-run resumes where it stopped.  Not ported: ``-v`` tracing, which raises.
-The read-filter build makes the JAX package's device layout (blocked,
-power-of-two sizes) on the card and on the CPU.
+run resumes where it stopped.  ``-v`` prints each contig's header and the
+Oracle's trial lines (those of its scalar site path, as the JAX package
+prints them).  With ``NTEDIT_TPU_TRACE=<dir>`` set, the
+engine's run is profiled into a Chrome trace there (utils/profiling.py).
+Not ported: multi-host polishing, which raises.  The read-filter build
+makes the JAX package's device layout (blocked, power-of-two sizes) on the
+card and on the CPU.
 """
 
 from __future__ import annotations
@@ -149,18 +153,21 @@ def _run_engine(
     m: int = 0,
     s: int = 0,
     a: int = 0,
+    v: int = 0,
     p: int = 1,
     q: int = 255,
     device: str = "cuda",
     spill: str = "auto",
     site_rows: bool | None = None,
+    engine: str = "auto",
 ) -> str:
-    """``site_rows`` is Polisher's (the outputs do not depend on it, so the
-    command line has no flag for it)."""
+    """``site_rows`` and ``engine`` are Polisher's (the outputs do not
+    depend on them, so the command line has no flag for them)."""
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
     from ntedit_tpu_torch.io import fastx, writers
+    from ntedit_tpu_torch.utils.profiling import trace
 
     host_bf = bloom.load_any(bf_path)
     counting = hasattr(host_bf, "counters")
@@ -184,7 +191,7 @@ def _run_engine(
         max_insertions=i, max_deletions=d, missing_threshold=x,
         edit_threshold=y, use_ratio=use_ratio, missing_ratio=max(X, 0.0),
         edit_ratio=max(Y, 0.0), jump=j, mode=m, snv=bool(s), mask=bool(a),
-        min_threshold=p, max_threshold=q, threads=max(1, threads),
+        min_threshold=p, max_threshold=q, verbose=bool(v), threads=max(1, threads),
     ).validate()
 
     if not prefix:
@@ -202,13 +209,13 @@ def _run_engine(
         f"\n -k {k}\n -z {z}\n -b {prefix}\n -r {os.path.basename(bf_path)}"
         f"\n -i {cfg.max_insertions}\n -d {cfg.max_deletions}"
         + (f"\n -X {X}\n -Y {Y}" if use_ratio else f"\n -x {x}\n -y {y}")
-        + f"\n -j {j}\n -m {m}\n -s {s}\n -a {a}\n -t {threads}\n -v 0",
+        + f"\n -j {j}\n -m {m}\n -s {s}\n -a {a}\n -t {threads}\n -v {v}",
         flush=True,
     )
     if counting:
         print(f" -p {p}\n -q {q}", flush=True)
 
-    pol = Polisher(host_bf, bloomrep, cfg, device=device, site_rows=site_rows)
+    pol = Polisher(host_bf, bloomrep, cfg, device=device, site_rows=site_rows, engine=engine)
     sp = _open_spill(spill, prefix, cfg, draft_path, bf_path, reject_path, vcf_path)
     # input order of the contigs polish() is given and of those the spill
     # already holds: ("cached", fragments, length) or ("fresh", record id)
@@ -228,6 +235,8 @@ def _run_engine(
                     events.append(("cached", got, len(rec.seq)))
                     continue
             events.append(("fresh", key))
+            if v:
+                print(rec.header, flush=True)
             yield rec.header, rec.seq
 
     with open(prefix + "_edited.fa", "w") as dfout, \
@@ -252,22 +261,23 @@ def _run_engine(
         # order: each result belongs to the first fresh event, whose contig
         # was queued before it was polished, and the spilled contigs ahead
         # of it are written first
-        for res in pol.polish(contig_stream()):
+        with trace(device=device):  # a Chrome trace when NTEDIT_TPU_TRACE is set
+            for res in pol.polish(contig_stream()):
+                write_cached()
+                _, key = events.popleft()
+                if sp is not None:
+                    sinks = io.StringIO(), io.StringIO(), io.StringIO()
+                    writers.write_contig(res, *sinks, clinvar, snv=cfg.snv)
+                    frags = tuple(s.getvalue() for s in sinks)
+                    sp.put(*key, *frags)
+                    for f, text in zip((dfout, rfout, vfout), frags):
+                        f.write(text)
+                else:
+                    writers.write_contig(res, dfout, rfout, vfout, clinvar, snv=cfg.snv)
+                total_bases += len(res.contig)
+                n_contigs += 1
+                n_records += len(res.subs)
             write_cached()
-            _, key = events.popleft()
-            if sp is not None:
-                sinks = io.StringIO(), io.StringIO(), io.StringIO()
-                writers.write_contig(res, *sinks, clinvar, snv=cfg.snv)
-                frags = tuple(s.getvalue() for s in sinks)
-                sp.put(*key, *frags)
-                for f, text in zip((dfout, rfout, vfout), frags):
-                    f.write(text)
-            else:
-                writers.write_contig(res, dfout, rfout, vfout, clinvar, snv=cfg.snv)
-            total_bases += len(res.contig)
-            n_contigs += 1
-            n_records += len(res.subs)
-        write_cached()
     if sp is not None:
         sp.finalize()
     dt = max(time.time() - t0, 1e-9)
@@ -279,15 +289,13 @@ def _run_engine(
     return prefix
 
 
-def _refuse_unported(args) -> None:
-    if args.v:
-        raise NotImplementedError(f"verbose tracing (-v) {NOT_PORTED}")
+def _refuse_unported() -> None:
+    if os.environ.get("NTEDIT_TPU_COORDINATOR") or os.environ.get("NTEDIT_TPU_DISTRIBUTED"):
+        raise NotImplementedError(f"multi-host polishing {NOT_PORTED}")
 
 
 def cmd_engine(args) -> None:
-    _refuse_unported(args)
-    if os.environ.get("NTEDIT_TPU_COORDINATOR") or os.environ.get("NTEDIT_TPU_DISTRIBUTED"):
-        raise NotImplementedError(f"multi-host polishing {NOT_PORTED}")
+    _refuse_unported()
     if args.c is not None:
         print(
             "warning: -c has no effect (the v2.1.1 engine overrides the "
@@ -297,14 +305,31 @@ def cmd_engine(args) -> None:
     _run_engine(
         args.r, args.f, args.b, reject_path=args.e_bf, vcf_path=args.l,
         threads=args.t, z=args.z, i=args.i, d=args.d, x=args.x, y=args.y,
-        X=args.X, Y=args.Y, j=args.j, m=args.m, s=args.s, a=args.a, p=args.p, q=args.q,
-        device=args.device, spill=args.spill,
+        X=args.X, Y=args.Y, j=args.j, m=args.m, s=args.s, a=args.a, v=args.v, p=args.p,
+        q=args.q, device=args.device, spill=args.spill,
     )
 
 
 # ---------------------------------------------------------------------------
 # pipeline stages
 # ---------------------------------------------------------------------------
+
+class _LazyBatches:
+    """The inputs' bfbuild.DeviceBatches, made when a stage first reads
+    them: the histogram and filter stages of one run share their pieces
+    on the device, so the files are read once (when the pieces fit)."""
+
+    def __init__(self, paths: list, k: int, device: str):
+        self.args = (paths, k, device)
+        self.batches = None
+
+    def get(self):
+        if self.batches is None:
+            from ntedit_tpu_torch.core import bfbuild
+
+            self.batches = bfbuild.device_batches(*self.args)
+        return self.batches
+
 
 def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cbf=False):
     """ntcard + ntstat role: histogram + read BF/CBF with stage caching.
@@ -315,9 +340,11 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
     read_files = _expand_reads_prefix(reads_prefix)
     hist_path = f"{reads_prefix}_k{k}.hist"
     bf_path = f"{reads_prefix}_k{k}" + (".cbf" if cbf else ".bf")
+    reads = _LazyBatches(read_files, k, device)
 
     def make_hist():
-        bfbuild.count_histogram(read_files, k, device=device).save(hist_path)
+        bfbuild.count_histogram(read_files, k, device=device,
+                                batches=reads.get()).save(hist_path)
 
     stages.run([hist_path], read_files, f"ntcard-role histogram -> {hist_path}",
                make_hist)
@@ -326,7 +353,7 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
         hist = bfbuild.Histogram.load(hist_path, k=k)
         filt, _, used_cutoff = bfbuild.build_read_filter(
             read_files, k, cutoff=cutoff, solid=solid, fpr=fpr,
-            counts=cbf, hist=hist, device=device,
+            counts=cbf, hist=hist, device=device, batches=reads.get(),
         )
         filt.save(bf_path)
         print(f"  cutoff={used_cutoff} bytes={filt.bytes}", flush=True)
@@ -337,7 +364,7 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
 
 
 def cmd_polish(args) -> None:
-    _refuse_unported(args)
+    _refuse_unported()
     if args.cap is not None:
         # the reference unconditionally overrides -c with k*1.5 after the
         # BF loads (ntedit.cpp:2450-2451): accepted, warned, ignored
@@ -359,7 +386,7 @@ def cmd_polish(args) -> None:
         _run_engine(
             bf_path, draft, prefix, vcf_path=args.l, threads=args.t,
             z=args.z, i=args.i, d=args.d, x=args.x, y=args.y, X=args.X,
-            Y=args.Y, j=args.j, m=args.m, a=args.a, p=args.p, q=args.q,
+            Y=args.Y, j=args.j, m=args.m, a=args.a, v=int(args.v), p=args.p, q=args.q,
             device=args.device, spill=args.spill,
         )
 
@@ -372,7 +399,7 @@ def cmd_polish(args) -> None:
 
 
 def cmd_snv(args) -> None:
-    _refuse_unported(args)
+    _refuse_unported()
     if bool(args.reads) == bool(args.genome):
         raise SystemExit("Please specify --reads OR --genome")
     reference = args.reference or args.draft
@@ -391,9 +418,11 @@ def cmd_snv(args) -> None:
         genome_prefix = os.path.basename(args.genome[0]).split(".")[0]
         hist_path = f"{genome_prefix}.k{args.k}.hist"
         bf_path = f"{genome_prefix}_k{args.k}.bf"
+        genome = _LazyBatches(list(args.genome), args.k, args.device)
 
         def make_hist():
-            bfbuild.count_histogram(args.genome, args.k, device=args.device).save(hist_path)
+            bfbuild.count_histogram(args.genome, args.k, device=args.device,
+                                    batches=genome.get()).save(hist_path)
 
         stages.run([hist_path], list(args.genome),
                    f"ntcard-role genome histogram -> {hist_path}", make_hist)
@@ -401,7 +430,8 @@ def cmd_snv(args) -> None:
         def make_bf():
             hist = bfbuild.Histogram.load(hist_path, k=args.k)
             bf = bfbuild.build_genome_bf(
-                args.genome, args.k, num_elements=hist.f0, device=args.device
+                args.genome, args.k, num_elements=hist.f0, device=args.device,
+                batches=genome.get(),
             )
             bf.save(bf_path)
 
@@ -412,7 +442,7 @@ def cmd_snv(args) -> None:
     def engine():
         _run_engine(
             bf_path, reference, prefix, vcf_path=args.l, threads=args.t,
-            z=args.z, y=args.y, X=args.X, Y=args.Y, j=args.j, s=1,
+            z=args.z, y=args.y, X=args.X, Y=args.Y, j=args.j, s=1, v=int(args.v),
             device=args.device, spill=args.spill,
         )
 
@@ -426,14 +456,16 @@ def cmd_snv(args) -> None:
 
 def cmd_make_genome_bf(args) -> None:
     from ntedit_tpu_torch.core import bfbuild
-    from ntedit_tpu_torch.io import fastx
 
+    # the genome's pieces stay on the device from the length's pass to the
+    # insertion's (when they fit): the genome is read once
+    batches = bfbuild.device_batches(args.genome, args.k, args.device)
     if args.num_elements is None and args.bf is None:
-        print(f"Genome size (bp): {fastx.total_length(args.genome)}",
-              flush=True)
+        print(f"Genome size (bp): {batches.bases()}", flush=True)
     bf = bfbuild.build_genome_bf(
         args.genome, args.k, fpr=args.fpr, hash_num=args.hashes,
         bf_bytes=args.bf, num_elements=args.num_elements, device=args.device,
+        batches=batches,
     )
     bf.save(args.o)
     print(f"Bloom filter saved to {args.o} ({bf.bytes} bytes)", flush=True)
@@ -473,7 +505,7 @@ def _add_common(sp) -> None:
                     help="present-ratio alternative (0.5 if only -X given)")
     sp.add_argument("-e", type=float, default=0.01,
                     help="false positive rate for the read Bloom filter [0.01]")
-    sp.add_argument("-v", action="store_true", help="verbose: not ported")
+    sp.add_argument("-v", action="store_true", help="verbose")
     sp.add_argument("-V", "--version", action="version", version=VERSION)
     sp.add_argument("-n", "--dry-run", action="store_true",
                     help="print the stages that would run")
@@ -553,7 +585,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="input VCF with annotated variants (e.g. clinvar.vcf)")
     eng.add_argument("-a", type=int, default=0, choices=range(0, 2))
     eng.add_argument("-v", type=int, default=0, choices=range(0, 2),
-                     help="verbose: only 0 is ported")
+                     help="verbose: each contig's header and the Oracle's trials [0]")
     eng.add_argument("-p", type=int, default=1)
     eng.add_argument("-q", type=int, default=255)
     _add_spill(eng)

@@ -20,8 +20,9 @@ the hash:
 
 This is a copy of the parts of the JAX package's module of the same name
 that the port uses (the port keeps its own host code): the constants, the
-vectorized window hashes and the multi-hash extension, for the host
-filter classes and for the rotated-seed tables of
+scalar hashes and their rolling updates (the Oracle, sitefix and the
+wavefront engine), the vectorized window hashes and the multi-hash
+extension, for the host filter classes and for the rotated-seed tables of
 ntedit_tpu_torch.core.nthash.
 
 NOTE: the seed constants below are the published ntHash constants; the
@@ -74,6 +75,99 @@ def _build_seed_tab() -> np.ndarray:
 
 SEED_TAB = _build_seed_tab()
 
+
+# ---------------------------------------------------------------------------
+# Scalar forms: one k-mer at a time (the Oracle, sitefix and the wavefront)
+# ---------------------------------------------------------------------------
+
+def srol1(x):
+    """Split-rotate-left by one: 33-bit low part and 31-bit high part each
+    rotate within themselves."""
+    x = np.uint64(x) if np.isscalar(x) or isinstance(x, (int, np.uint64)) else x
+    m = ((x & np.uint64(0x8000000000000000)) >> np.uint64(30)) | (
+        (x & np.uint64(0x100000000)) >> np.uint64(32)
+    )
+    return ((x << np.uint64(1)) & np.uint64(0xFFFFFFFDFFFFFFFF)) | m
+
+
+def srol(x, d: int):
+    """srol applied d times, via independent 33/31-bit rotations."""
+    x = np.uint64(x) if isinstance(x, int) else x
+    d_lo = np.uint64(d % SPLIT_LOW_BITS)
+    d_hi = np.uint64(d % SPLIT_HIGH_BITS)
+    lo = x & _LOW33
+    hi = x >> np.uint64(33)
+    lo = ((lo << d_lo) | (lo >> (np.uint64(33) - d_lo))) & _LOW33 if d_lo else lo
+    hi = ((hi << d_hi) | (hi >> (np.uint64(31) - d_hi))) & np.uint64(0x7FFFFFFF) if d_hi else hi
+    return (hi << np.uint64(33)) | lo
+
+
+def sror1(x):
+    """Inverse of srol1."""
+    return srol(x, SROL_PERIOD - 1)
+
+
+def base_forward_hash(kmer: bytes | np.ndarray, k: int | None = None) -> np.uint64:
+    """Forward hash of a k-mer: XOR_i srol^(k-1-i)(seed(s_i))."""
+    arr = np.frombuffer(bytes(kmer), dtype=np.uint8) if isinstance(kmer, (bytes, bytearray)) else kmer
+    if k is None:
+        k = len(arr)
+    h = np.uint64(0)
+    for i in range(k):
+        h = srol1(h) ^ SEED_TAB[arr[i]]
+    return h
+
+
+def base_reverse_hash(kmer: bytes | np.ndarray, k: int | None = None) -> np.uint64:
+    """Reverse-complement hash: XOR_i srol^i(cseed(s_i))."""
+    arr = np.frombuffer(bytes(kmer), dtype=np.uint8) if isinstance(kmer, (bytes, bytearray)) else kmer
+    if k is None:
+        k = len(arr)
+    h = np.uint64(0)
+    for i in range(k - 1, -1, -1):
+        h = srol1(h) ^ SEED_TAB[arr[i] & CP_OFF]
+    return h
+
+
+def next_forward_hash(fh, k: int, char_out: int, char_in: int):
+    """Roll forward by one base: drop char_out, append char_in."""
+    return srol1(fh) ^ srol(SEED_TAB[char_out], k) ^ SEED_TAB[char_in]
+
+
+def next_reverse_hash(rh, k: int, char_out: int, char_in: int):
+    """Roll the reverse-complement hash by one base."""
+    return sror1(rh ^ SEED_TAB[char_out & CP_OFF] ^ srol(SEED_TAB[char_in & CP_OFF], k))
+
+
+def change_last_forward(fh, char_out: int, char_in: int):
+    """Replace the LAST base of the window (reference NTMC64_changelast,
+    ntedit.cpp:444-445): the last base contributes srol^0(seed)."""
+    return fh ^ SEED_TAB[char_out] ^ SEED_TAB[char_in]
+
+
+def change_last_reverse(rh, k: int, char_out: int, char_in: int):
+    """Reverse-side last-base replacement (ntedit.cpp:446-449)."""
+    return rh ^ srol(SEED_TAB[char_out & CP_OFF], k - 1) ^ srol(SEED_TAB[char_in & CP_OFF], k - 1)
+
+
+def extend_hashes(base_hash: np.uint64, k: int, m: int) -> np.ndarray:
+    """Derive m hash values from the canonical hash (ntHash NTM64 mixing).
+
+    h[0] is the canonical hash itself; h[i>=1] = mix(base * (i ^ k*MULTISEED)).
+    """
+    out = np.empty(m, dtype=np.uint64)
+    out[0] = base_hash
+    for i in range(1, m):
+        mult = np.uint64((i ^ (k * int(MULTISEED))) & 0xFFFFFFFFFFFFFFFF)
+        t = np.uint64((int(base_hash) * int(mult)) & 0xFFFFFFFFFFFFFFFF)
+        t ^= t >> MULTISHIFT
+        out[i] = t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Vectorized forms
+# ---------------------------------------------------------------------------
 
 def _srol_split(x: np.ndarray, d_lo: np.ndarray, d_hi: np.ndarray) -> np.ndarray:
     """srol with pre-split per-element rotation counts (d_lo = d mod 33,
@@ -159,6 +253,27 @@ def all_window_hashes(seq: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     np.bitwise_xor.accumulate(rterms, out=pr[1:])
     fh = _srol_split(pf[k:] ^ pf[:n], wfl, wfh)
     rh = _srol_split(pr[k:] ^ pr[:n], wrl, wrh)
+    return fh, rh
+
+
+def batch_window_hashes(mat: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(fh, rh) of every window of every row: mat [R, L] -> [R, L-k+1].
+
+    Same prefix-XOR-scan algebra as all_window_hashes, vectorized over
+    rows (used by the vectorized site fixer to hash hundreds of patched
+    trial sequences at once)."""
+    R, L = mat.shape
+    n = L - k + 1
+    Ftab, Rtab = _seed_rot_tables()
+    neg, pos, (wfl, wfh), (wrl, wrh) = _win_dists(L, k)
+    fterms = Ftab[mat, neg]
+    rterms = Rtab[mat, pos]
+    pf = np.zeros((R, L + 1), dtype=np.uint64)
+    pr = np.zeros((R, L + 1), dtype=np.uint64)
+    np.bitwise_xor.accumulate(fterms, axis=1, out=pf[:, 1:])
+    np.bitwise_xor.accumulate(rterms, axis=1, out=pr[:, 1:])
+    fh = _srol_split(pf[:, k:] ^ pf[:, :n], wfl, wfh)
+    rh = _srol_split(pr[:, k:] ^ pr[:, :n], wrl, wrh)
     return fh, rh
 
 

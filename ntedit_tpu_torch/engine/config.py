@@ -7,6 +7,7 @@ rules (ntedit.cpp:99-169 and validation at 2411-2502).
 from __future__ import annotations
 
 import dataclasses
+from itertools import product
 
 
 @dataclasses.dataclass
@@ -92,4 +93,41 @@ class EngineConfig:
         return self.k / self.edit_threshold
 
 
+# Trial-count table: cumulative number of insertion strings of length <= i
+# (sum of 4^0..4^(i-1)); reference num_tries (ntedit.cpp:172).
+NUM_TRIES = [0, 1, 5, 21, 85, 341]
+
+# Alternate-base tables (ntedit.cpp:180-199).  Polish mode maps IUPAC codes
+# to their *complement* sets; SNV mode tries all four for IUPAC.
+POLISH_BASES = {
+    "A": "TCG", "T": "ACG", "C": "ATG", "G": "ATC",
+    "R": "TC", "Y": "AG", "S": "AT", "W": "CG", "K": "AC", "M": "TG",
+    "B": "A", "D": "C", "H": "G", "V": "T", "N": "ATCG",
+}
+SNV_BASES = {c: "ATCG" for c in "RYSWKMBDHVN"}
+SNV_BASES.update({"A": "TCG", "T": "ACG", "C": "ATG", "G": "ATC"})
+
+
+def _multi_bases(first: str) -> list[str]:
+    """All insertion strings of length 1..5 starting with ``first``, ordered
+    by length then lexicographically over ACGT — the exact trial order of
+    the reference's multi_possible_bases table (ntedit.cpp:203-348)."""
+    out = []
+    for length in range(1, 6):
+        for rest in product("ACGT", repeat=length - 1):
+            out.append(first + "".join(rest))
+    return out
+
+
+MULTI_POSSIBLE_BASES = {b: _multi_bases(b) for b in "ACGT"}
+
+ACGT = set(b"ACGT")
 ACCEPTED = set(b"ATGCRYSWKMBDHV")  # isAcceptedBase (ntedit.cpp:493-499)
+
+_RC = {ord(a): ord(b) for a, b in zip("AaTtGgCc", "TTAACCGG")}
+
+
+def rc_char(c: int) -> int:
+    """Reference RC(): complement of ACGT (case-folded), else 'N'
+    (ntedit.cpp:501-520)."""
+    return _RC.get(c, ord("N"))

@@ -8,7 +8,7 @@ stretches the device proved clean and behaves exactly like the full
 sequential scan elsewhere.  The device computes chunk i+1's gates while
 -t host threads repair chunk i's segments.
 
-Two engines, as in the JAX package:
+Four engines, as in the JAX package:
 
 * ``pipelined`` (the default, also ``auto``): the streaming gate pass
   (flag.iter_gate_chunks) overlapped with the threaded segment repair
@@ -20,6 +20,19 @@ Two engines, as in the JAX package:
   device also computes at every gate which of the four bases the window's
   last position may take (flag.polish_candidate_masks), the engine's first
   substitution probe.
+* ``wavefront``: batched numpy rounds over the gate hint
+  (engine/wavefront.py); in SNV mode over the device's candidate heads.
+  A scan-order-dependent case it cannot batch (WavefrontBailout) goes to
+  the sequential engine.
+* ``sequential``: the Oracle itself (engine/oracle.py), the executable
+  specification, fast-forwarding over the gate hint.
+
+Where the native or the segmented repair returns None (a filter or input
+it does not take), the contig goes to the wavefront engine and, on a
+bail-out, to the sequential one, as in the JAX package.  With -v the
+Oracle traces its trials on stdout, with the gate hint of the device.
+The wavefront and the Oracle share one Oracle object and so run one
+contig at a time.
 
 In SNV mode (-s 1) every head enters the engine's fix path, so the device
 computes the candidate heads instead (ops/snv_kernel.py): the only heads
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import queue
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, Optional, Tuple
@@ -42,12 +56,12 @@ import numpy as np
 import torch
 
 from ntedit_tpu_torch.core import bloom
-from ntedit_tpu_torch.engine import flag, native_repair
+from ntedit_tpu_torch.engine import flag, native_repair, wavefront
 from ntedit_tpu_torch.engine.config import EngineConfig
+from ntedit_tpu_torch.engine.oracle import Oracle
 from ntedit_tpu_torch.engine.records import ContigResult
 
-NOT_PORTED = "is not ported to the torch package yet (see ROADMAP.md)"
-ENGINES = ("pipelined", "native")
+ENGINES = ("pipelined", "native", "wavefront", "sequential")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,8 +86,11 @@ class Polisher:
         engine: str = "auto",
         site_rows: Optional[bool] = None,
         cand_masks: bool = False,
+        fast_sites: bool = True,
     ):
-        """``engine``: "auto" (= "pipelined"), "pipelined" or "native".
+        """``engine``: "auto" (= "pipelined"), "pipelined", "native",
+        "wavefront" or "sequential".  ``fast_sites``: the Oracle evaluates
+        eligible sites with the batched site fixer (engine/sitefix.py).
 
         ``site_rows``: compute site rows on the device and hand them to the
         repair, in SNV mode (each candidate's) and with the pipelined engine
@@ -91,12 +108,8 @@ class Polisher:
         if cfg.k == 0:
             cfg = dataclasses.replace(cfg, k=host_bloom.k, hash_num=host_bloom.hash_num)
         self.cfg = cfg.validate()
-        if self.cfg.verbose:
-            raise NotImplementedError(f"verbose tracing (-v 1) {NOT_PORTED}")
         if engine == "auto":
             engine = "pipelined"
-        if engine in ("wavefront", "sequential"):
-            raise NotImplementedError(f"the {engine} engine {NOT_PORTED}")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}: one of auto, {', '.join(ENGINES)}")
         self.engine = engine
@@ -106,6 +119,10 @@ class Polisher:
         self.site_rows = self.cfg.snv if site_rows is None else site_rows
         self.cand_masks = cand_masks
         self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
+        self.oracle = Oracle(host_bloom, host_bloomrep, self.cfg, fast=fast_sites)
+        # the wavefront and sequential engines mutate the shared Oracle, and
+        # polish() runs two contigs in flight: those paths take this lock
+        self._oracle_lock = threading.Lock()
         # the binned SNV candidate pass's scratch (flag.cand_bins): one for
         # each contig in flight, taken by a call and given back after it
         self._cand_bins = queue.SimpleQueue()
@@ -133,39 +150,78 @@ class Polisher:
         probe)."""
         return not self.df.counting and self.bloomrep is None and self.cfg.mode != 2
 
+    def _snv_candidates(self, seq: np.ndarray, stream, rows: bool = False):
+        """The device's SNV candidate heads (and with ``rows`` their site
+        rows, as a pair), on the binned pass's scratch of this call."""
+        try:
+            bins = self._cand_bins.get_nowait()
+        except queue.Empty:
+            bins = flag.cand_bins(self.df, self.chunk)
+        if rows:
+            got = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
+                                     stream=stream, bins=bins)
+        else:
+            got = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
+                                               stream=stream, bins=bins)
+        self._cand_bins.put(bins)  # the candidates are on the host: the bins are free
+        return got
+
     def _snv_contig(self, header: str, seq: np.ndarray, stream) -> ContigResult:
         """SNV mode.  Eligible runs: the device's candidates (and their
         site rows) into the segmented repair with -t > 1, else into the
         whole-contig engine.  Other runs: the gate pass with snv=True (every
         valid head) as the whole-contig engine's hint."""
-        rows = None
+        rows = cand = hint = None
         res = None
         if self._snv_fast_eligible():
-            try:
-                bins = self._cand_bins.get_nowait()
-            except queue.Empty:
-                bins = flag.cand_bins(self.df, self.chunk)
             if self.site_rows:
-                hint, rows = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
-                                                stream=stream, bins=bins)
+                cand, rows = self._snv_candidates(seq, stream, rows=True)
             else:
-                hint = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
-                                                    stream=stream, bins=bins)
-            self._cand_bins.put(bins)  # the candidates are on the host: the bins are free
+                cand = self._snv_candidates(seq, stream)
             if self.cfg.threads > 1:
                 res = native_repair.polish_contig_segmented(
-                    self.bloom, None, self.cfg, header, seq, hint,
+                    self.bloom, None, self.cfg, header, seq, cand,
                     threads=self.cfg.threads, allow_snv=True, site_rows=rows)
         else:
             hint = self.gate_positions(seq)
         if res is None:
             res = native_repair.polish_contig_native(
-                self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint, site_rows=rows)
+                self.bloom, self.bloomrep, self.cfg, header, seq,
+                gate_hint=hint if cand is None else cand, site_rows=rows)
         if res is None:
-            # the JAX package falls back to its wavefront engine here
-            raise NotImplementedError(
-                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
+            return self._fallback(header, seq, hint, cand, stream)
         return res
+
+    def _fallback(self, header: str, seq: np.ndarray, hint: Optional[np.ndarray] = None,
+                  cand: Optional[np.ndarray] = None, stream=None) -> ContigResult:
+        """The wavefront engine, then on a bail-out the sequential Oracle
+        (the JAX package's polish.py:283-311).  ``hint`` is the gate pass's
+        (computed here when None); the wavefront's heads are the gates in
+        polish mode and in SNV mode the candidate heads ``cand`` (the
+        device's when eligible, else every head)."""
+        if self.cfg.snv:
+            if cand is None:
+                cand = (self._snv_candidates(seq, stream) if self._snv_fast_eligible()
+                        else np.arange(max(0, len(seq) - self.cfg.k + 1)))
+            heads = cand
+        else:
+            if hint is None:
+                hint = self.gate_positions(seq)
+            heads = hint
+        with self._oracle_lock:
+            try:
+                return wavefront.polish_contig_wavefront(self.oracle, header, bytes(seq), heads)
+            except wavefront.WavefrontBailout:
+                pass  # a scan-order-dependent case: the sequential engine
+        return self._sequential(header, seq, hint)
+
+    def _sequential(self, header: str, seq: np.ndarray,
+                    hint: Optional[np.ndarray] = None) -> ContigResult:
+        """The Oracle's scan over the gate hint (computed here when None)."""
+        if hint is None:
+            hint = self.gate_positions(seq)
+        with self._oracle_lock:
+            return self.oracle.polish_contig(header, bytes(seq), gate_hint=hint)
 
     def _native_contig(self, header: str, seq: np.ndarray, hint: np.ndarray,
                        stream) -> ContigResult:
@@ -185,19 +241,22 @@ class Polisher:
                 self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint,
                 gate_cand=masks)
         if res is None:
-            # the JAX package falls back to its wavefront engine here
-            raise NotImplementedError(
-                f"native repair failed on contig {header!r}; the wavefront fallback {NOT_PORTED}")
+            return self._fallback(header, seq, hint, stream=stream)
         return res
 
     def polish_contig(self, header: str, seq: np.ndarray) -> ContigResult:
         """Polish mode: the pipelined engine streams the contig's gates
         (with their rows) from the device into the threaded repair; the
         native engine takes the whole gate hint (and its masks) first.  SNV
-        mode: the candidates into the segmented repair.  Each call runs its
-        device work on a CUDA stream of its own, so two contigs in flight
-        never share one."""
+        mode: the candidates into the segmented repair.  The wavefront and
+        sequential engines, and -v (the Oracle, tracing), take the whole
+        gate hint.  Each call runs its device work on a CUDA stream of its
+        own, so two contigs in flight never share one."""
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if self.cfg.verbose or self.engine == "sequential":
+            return self._sequential(header, seq)
+        if self.engine == "wavefront":
+            return self._fallback(header, seq, stream=stream)
         if self.cfg.snv:
             return self._snv_contig(header, seq, stream)
         if self.engine == "native":
@@ -231,8 +290,9 @@ class Polisher:
 
         With -t > 1, contigs overlap two deep on two host threads (the next
         contig's gate pass runs while the current one repairs), each on its
-        own CUDA stream; results are yielded strictly in input order."""
-        if self.cfg.threads <= 1:
+        own CUDA stream; results are yielded strictly in input order.  With
+        -v they do not, so each contig's trace follows the one before."""
+        if self.cfg.threads <= 1 or self.cfg.verbose:
             for header, seq in contigs:
                 if len(seq) >= self.cfg.min_contig_len:
                     yield self.polish_contig(header, seq)

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's writers (the port keeps its own host code):
 the reference writer semantics (ntedit.cpp ``writeEditsToFile`` 925-1213
-and the header setup in ``readAndCorrect`` 2154-2211) over the engine's
-rope.  Observable quirks reproduced on purpose:
+and the header setup in ``readAndCorrect`` 2154-2211) over the engines'
+rope or the Oracle's cell list.  Observable quirks reproduced on purpose:
 
 * insertion rows log ``draft_char = contig[span_start - len(insertion)]``
   (ntedit.cpp:957) and the *previous* span-end+1 as position;
@@ -83,13 +83,19 @@ def _clin(clinvar: dict, key: str) -> str:
 
 
 class _Runs:
-    """The rope's node stream as alternating original spans (contiguous
-    coordinates) and insertion runs: coordinate-contiguous span nodes
-    merge into one run, adjacent inserted cells into one insertion run."""
+    """The edited sequence as alternating original spans (contiguous
+    coordinates) and insertion runs.  From a rope: coordinate-contiguous
+    span nodes merge into one run, adjacent inserted cells into one
+    insertion run.  From the Oracle's cell list (one [orig, char,
+    ins_support, span_support] cell per base): the same runs."""
 
     def __init__(self, result: ContigResult):
         self.runs = []
-        for nd in result.cells.nodes:
+        nodes = getattr(result.cells, "nodes", None)
+        if nodes is None:
+            self._from_cells(result.cells)
+            return
+        for nd in nodes:
             if nd[0] == "span":
                 if (
                     self.runs
@@ -110,6 +116,29 @@ class _Runs:
                     )
                 else:
                     self.runs.append(("ins", bytes([cell[1]]), [cell[2]], None))
+
+    def _from_cells(self, cells: list) -> None:
+        i = 0
+        n = len(cells)
+        while i < n:
+            if cells[i][0] >= 0:  # span
+                s = cells[i][0]
+                sup = cells[i][3]
+                j = i
+                while j + 1 < n and cells[j + 1][0] == cells[j][0] + 1:
+                    j += 1
+                self.runs.append(("span", s, cells[j][0], sup))
+                i = j + 1
+            else:
+                chars = []
+                sups = []
+                j = i
+                while j < n and cells[j][0] < 0:
+                    chars.append(cells[j][1])
+                    sups.append(cells[j][2])
+                    j += 1
+                self.runs.append(("ins", bytes(chars), sups, None))
+                i = j
 
 
 def write_contig(

@@ -40,6 +40,8 @@ def imported_roots(path):
 def test_no_jax_or_reference_imports():
     sources = port_sources()
     assert len(sources) > 15
+    names = {p.name for p in sources}
+    assert {"oracle.py", "sitefix.py", "wavefront.py", "native.py", "profiling.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & FORBIDDEN) for p in sources}
     assert not {p: r for p, r in bad.items() if r}
 
@@ -47,7 +49,10 @@ def test_no_jax_or_reference_imports():
 def test_import_leaves_jax_out():
     code = ("import sys; import ntedit_tpu_torch, ntedit_tpu_torch.cli, "
             "ntedit_tpu_torch.engine.polish, ntedit_tpu_torch.convert, "
-            "ntedit_tpu_torch.core.bfbuild, ntedit_tpu_torch.io.spill; "
+            "ntedit_tpu_torch.core.bfbuild, ntedit_tpu_torch.io.spill, "
+            "ntedit_tpu_torch.io.native, ntedit_tpu_torch.engine.oracle, "
+            "ntedit_tpu_torch.engine.sitefix, ntedit_tpu_torch.engine.wavefront, "
+            "ntedit_tpu_torch.utils.profiling; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntedit_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -240,29 +240,40 @@ def test_replay_when_the_stream_engine_fails(monkeypatch):
     assert render(twriters, got) == render(jwriters, want)
 
 
-def test_not_ported_options_raise(monkeypatch):
-    """-v raises, and so does a failed native repair, in polish and in
-    SNV mode, where the JAX package would fall back to its wavefront
-    engine; the repairs that cut at quiet gaps refuse raw SNV gates."""
+def test_not_ported_options_raise(monkeypatch, capsys):
+    """What raised before the port took the Oracle now runs as in the JAX
+    package: -v traces through the Oracle, and a failed native repair
+    falls back to the wavefront engine, in polish and in SNV mode.  The
+    repairs that cut at quiet gaps still refuse raw SNV gates."""
+    from ntedit_tpu.engine import native_repair as jnative
+
     from ntedit_tpu_torch.engine import native_repair
 
-    f = jbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, K)
+    truth, draft = workload(6000, seed=5)
+    f = jbloom.BlockedKmerBloomFilter.zeros(1 << 14, 3, K)
+    f.insert_seq(truth)
     tf, _ = convert.filter_from_numpy("blocked", f.words, 3, K, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPolisher(tf, None, TConfig(k=K, hash_num=3, verbose=True), device="cpu")
+    verbose = TConfig(k=K, hash_num=3, verbose=True)
+    # the scalar path traces each trial; sites the batched fixer takes print
+    # nothing, in both packages
+    got = TPolisher(tf, None, verbose, device="cpu", fast_sites=False).polish_contig("c", draft)
+    traced = capsys.readouterr().out
+    want = JPolisher(f, None, JConfig(k=K, hash_num=3, verbose=True),
+                     fast_sites=False).polish_contig("c", draft)
+    assert traced == capsys.readouterr().out and "check_present" in traced
+    assert render(twriters, got) == render(jwriters, want)
     snv_cfg = TConfig(k=K, hash_num=3, snv=True)
-    seq = simulate.random_genome(2000, seed=5)
     with pytest.raises(ValueError, match="quiet gaps"):
-        native_repair.polish_contig_segmented(f, None, snv_cfg, "c", seq, np.arange(10))
+        native_repair.polish_contig_segmented(f, None, snv_cfg, "c", draft, np.arange(10))
     with pytest.raises(ValueError, match="quiet gaps"):
-        native_repair.polish_contig_pipelined(f, None, snv_cfg, "c", seq, iter(()))
-    monkeypatch.setattr(native_repair, "polish_contig_pipelined", lambda *a, **kw: None)
-    monkeypatch.setattr(native_repair, "polish_contig_native", lambda *a, **kw: None)
-    # with -t > 1 the replay tries the segmented repair first
-    monkeypatch.setattr(native_repair, "polish_contig_segmented", lambda *a, **kw: None)
-    pol = TPolisher(tf, None, TConfig(k=K, hash_num=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
-        pol.polish_contig("c", seq)
-    pol = TPolisher(tf, None, snv_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP"):
-        pol.polish_contig("c", seq)
+        native_repair.polish_contig_pipelined(f, None, snv_cfg, "c", draft, iter(()))
+    for mod in (native_repair, jnative):
+        for name in ("polish_contig_pipelined", "polish_contig_native",
+                     "polish_contig_segmented"):  # with -t > 1 the replay tries it first
+            monkeypatch.setattr(mod, name, lambda *a, **kw: None)
+    for snv in (False, True):
+        want = JPolisher(f, None, JConfig(k=K, hash_num=3, snv=snv)).polish_contig("c", draft)
+        got = TPolisher(tf, None, TConfig(k=K, hash_num=3, snv=snv),
+                        device="cpu").polish_contig("c", draft)
+        assert sub_fields(got) == sub_fields(want) and len(got.subs) > 0
+        assert (render_snv(got, want) if snv else render(twriters, got) == render(jwriters, want))

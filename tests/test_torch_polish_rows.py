@@ -410,16 +410,16 @@ def test_no_rows_or_masks_where_they_are_not_exact(case, monkeypatch):
 
 
 def test_engine_choice():
-    """auto means pipelined; the engines the port has not taken raise,
-    naming ROADMAP.md; the defaults measured on the card: rows on in SNV
-    mode, off in polish mode, masks off."""
+    """auto means pipelined; every engine of the JAX package is taken and
+    an unknown one raises; the defaults measured on the card: rows on in
+    SNV mode, off in polish mode, masks off, the batched site fixer on."""
     f = tbloom.BlockedKmerBloomFilter.zeros(1 << 12, 3, 25)
     cfg = TConfig(k=25, hash_num=3)
     assert TPolisher(f, device="cpu").engine == "pipelined"
-    assert TPolisher(f, device="cpu", engine="native").engine == "native"
-    for engine in ("wavefront", "sequential"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TPolisher(f, device="cpu", engine=engine)
+    for engine in ("pipelined", "native", "wavefront", "sequential"):
+        pol = TPolisher(f, device="cpu", engine=engine)
+        assert pol.engine == engine and pol.oracle.fast is True
+    assert TPolisher(f, device="cpu", fast_sites=False).oracle.fast is False
     with pytest.raises(ValueError, match="engine"):
         TPolisher(f, device="cpu", engine="fast")
     pol = TPolisher(f, None, cfg, device="cpu")
