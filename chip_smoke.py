@@ -9,7 +9,8 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build    - builds the CUDA kernels (nvcc: the gate kernel, the SNV
-              kernels and the filter-build kernels), the host repair
+              kernels, the filter-build kernels and the collectives'
+              reduce), the host repair
               library and the batch reader (g++, zlib: its version) from
               the sources in this checkout, side by side.
    Then the kernels' registers, shared memory and spills (nvcc -Xptxas -v)
@@ -141,6 +142,25 @@ Phases, each printing one JSON line; any failure exits nonzero:
               equal the host-only full scan's; each reports its wall and its
               gate and candidate launches.
 
+9. mesh     - (run after phase 6, on its inputs and those of phases 3 and
+              5) the collectives' reduce kernels (or_rows, sat_add_rows)
+              against their plain versions bit for bit (D in {1, 2, 3, 4,
+              8}, widths 1 to 70 elements, 16-, 4- and 1-byte vectors,
+              counters at 0, 1, 128, 254, 255 and eight rows of 40), then
+              timed at the shape the collective at D = 4 gives them (a 256
+              MiB filter's words, a 512 MiB count table) against their
+              bytes bound, their plain versions and a bitwise_or_ chain.  A
+              world of one rank over NCCL: sharded_bf_build of phase 6's
+              940,000 reads into a 2^31-bit plain filter and
+              sharded_cbf_build into 2^29 counters, each equal to one
+              kmer_insert / kmer_count over the same reads; sharded_polish
+              over phase 3's draft (256 MiB blocked filter, with
+              NTEDIT_TPU_CAND=1, and the plain filter) and over phase 5's
+              reference with -s 1, each byte-identical to that phase's
+              host-only scan, with the Polisher's wall beside.  Then
+              ``engine -t 4`` as two processes sharing the card (records
+              over gloo), the merged files byte-identical to phase 3's
+              host-only scan; each rank's contigs, bases and wall.
 Then a ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits nonzero and prints no result.
@@ -256,7 +276,7 @@ def phase_build() -> dict:
 
     from ntedit_tpu_torch.engine import native_repair
     from ntedit_tpu_torch.io import native
-    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, mesh_kernel, snv_kernel
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
@@ -266,10 +286,11 @@ def phase_build() -> dict:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=5) as ex:  # three nvcc and two g++ side by side
+    with ThreadPoolExecutor(max_workers=6) as ex:  # four nvcc and two g++ side by side
         jobs = {"gate_kernel_s": ex.submit(timed, gate_kernel.load_library),
                 "snv_kernel_s": ex.submit(timed, snv_kernel.load_library),
                 "build_kernel_s": ex.submit(timed, build_kernel.load_library),
+                "mesh_kernel_s": ex.submit(timed, mesh_kernel.load_library),
                 "repair_s": ex.submit(timed, native_repair.get_lib),
                 "reader_s": ex.submit(timed, native.get_lib)}
         times = {name: job.result() for name, job in jobs.items()}
@@ -297,7 +318,12 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "kmer_partition_kernelILb1E": "kmer_partition_scatter",
           "kmer_count_apply_kernel": "kmer_count_apply", "kmer_solid_bits_kernel": "kmer_solid_bits",
           "kmer_insert_kernelILi0E": "kmer_insert_plain",
-          "kmer_insert_kernelILi1E": "kmer_insert_blocked", "atomic_floor_kernel": "atomic_floor"}
+          "kmer_insert_kernelILi1E": "kmer_insert_blocked", "atomic_floor_kernel": "atomic_floor",
+          "reduce_rows_kernelILi0E5uint4": "or_rows_16", "reduce_rows_kernelILi0EjE": "or_rows_4",
+          "reduce_rows_kernelILi0EhE": "or_rows_1",
+          "reduce_rows_kernelILi1E5uint4": "sat_add_rows_16",
+          "reduce_rows_kernelILi1EjE": "sat_add_rows_4",
+          "reduce_rows_kernelILi1EhE": "sat_add_rows_1"}
 
 
 def ptxas_resources(log: str) -> dict:
@@ -330,13 +356,13 @@ def ptxas_resources(log: str) -> dict:
 def phase_resources() -> dict:
     import torch
 
-    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, mesh_kernel, snv_kernel
 
     res = {}
-    for mod in (gate_kernel, snv_kernel, build_kernel):
+    for mod in (gate_kernel, snv_kernel, build_kernel, mesh_kernel):
         res.update(ptxas_resources(mod.build_log()))
     for form, blocks in {**gate_kernel.occupancy(), **snv_kernel.occupancy(),
-                         **build_kernel.occupancy()}.items():
+                         **build_kernel.occupancy(), **mesh_kernel.occupancy()}.items():
         res.setdefault(form, {})["blocks_per_sm"] = blocks
     if any(r.get("blocks_per_sm", 0) <= 0 for r in res.values()):
         raise RuntimeError(f"a kernel form cannot be resident: {res}")
@@ -1308,11 +1334,11 @@ def simulate_reads(genome: np.ndarray, prefix: str, seed: int) -> list:
 
 
 def _launch_counted():
-    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+    from ntedit_tpu_torch.ops import build_kernel, gate_kernel, mesh_kernel, snv_kernel
 
     return (*build_kernel.KERNELS, gate_kernel.gate_words, snv_kernel.snv_cand_words,
             snv_kernel.snv_cand_bin, snv_kernel.snv_cand_probe, snv_kernel.snv_site_rows,
-            snv_kernel.polish_site_rows, snv_kernel.polish_cand_masks)
+            snv_kernel.polish_site_rows, snv_kernel.polish_cand_masks, *mesh_kernel.KERNELS)
 
 
 def kernel_launches() -> dict:
@@ -2356,6 +2382,341 @@ def phase_numbers(power: str, against=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the mesh programs and the multi-host engine
+# ---------------------------------------------------------------------------
+
+MESH_BITS = 1 << 31   # the sharded read filter: 256 MiB of words
+MESH_SLOTS = 1 << 29  # the sharded count table: 512 MiB of counters
+REDUCE_D = 4          # the ranks the reduce is timed for
+
+
+def reduce_cases():
+    """(rows int32, rows uint8) of the reduce's grid: D in {1, 2, 3, 4, 8};
+    widths 1 to 70 elements, so tails of 1 to 15 bytes past the 16-byte
+    vectors; zero, all-ones and random words; counters at 0, 1, 128, 254 and
+    255 and random; eight rows of 40 (320 saturates)."""
+    rng = np.random.default_rng(990)
+    edges = np.array([0, 1, 128, 254, 255], dtype=np.uint8)
+    for d in (1, 2, 3, 4, 8):
+        for m in range(1, 71):
+            words = rng.integers(-2**31, 2**31, size=(d, m)).astype(np.int32)
+            words[0, : m // 3] = 0
+            words[-1, m // 2 :] = -1
+            counts = edges[rng.integers(0, 5, size=(d, m))]
+            counts[:, ::4] = rng.integers(0, 256, size=counts[:, ::4].shape)
+            yield words, counts
+        yield np.zeros((d, 64), np.int32), np.full((d, 64), 40, dtype=np.uint8)
+
+
+def check_reduce() -> dict:
+    """Both reduce kernels against their plain versions, bit for bit, on the
+    grid, on rows with 16-byte vectors and on views one element in (4- and
+    1-byte vectors)."""
+    import torch
+
+    from ntedit_tpu_torch.ops import mesh_kernel as mk
+
+    cases = differing = err = 0
+    for words, counts in reduce_cases():
+        for host, fn, plain in ((words, mk.or_rows, mk.or_rows_plain),
+                                (counts, mk.sat_add_rows, mk.sat_add_rows_plain)):
+            rows = torch.from_numpy(host).cuda()
+            wide = torch.from_numpy(np.pad(host, ((0, 0), (1, 0)))).cuda()[:, 1:]
+            want = plain(rows)
+            for view in (rows, wide):
+                got = fn(view)
+                torch.cuda.synchronize()
+                cases += 1
+                differing += int(not torch.equal(got, want))
+                err = max(err, int((got.long() - want.long()).abs().max()))
+    if differing:
+        raise AssertionError(f"reduce kernels: {differing} of {cases} cases differ from plain")
+    return {"cases": cases, "differing": differing, "max_abs_err": err}
+
+
+def reduce_numbers(flush) -> dict:
+    """Each reduce at the shape the collective at D = 4 gives it, one rank's
+    rows [4, size / 4] of a 256 MiB filter's words and of a 512 MiB count
+    table: ms (CUDA events, L2 flushed), the plain version's, the bytes
+    bound ((D + 1) x m x elt at the HBM rate) and, for the OR,
+    torch.Tensor.bitwise_or_ chained over the rows (no one PyTorch call
+    computes the saturating sum)."""
+    import torch
+
+    from ntedit_tpu_torch.ops import mesh_kernel as mk
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, fn, plain, size, dtype in (
+            ("or_rows", mk.or_rows, mk.or_rows_plain, MESH_BITS // 8, torch.int32),
+            ("sat_add_rows", mk.sat_add_rows, mk.sat_add_rows_plain, MESH_SLOTS, torch.uint8)):
+        m = size // dtype.itemsize // REDUCE_D
+        low, high = (-2**31, 2**31 - 1) if dtype == torch.int32 else (0, 256)
+        rows = torch.randint(low, high, (REDUCE_D, m), dtype=dtype, device=dev)
+        got = fn(rows)
+        want = plain(rows)
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at the timed shape")
+        row = {"rows": REDUCE_D, "m": m, "bytes": (REDUCE_D + 1) * m * dtype.itemsize,
+               "ms": time_cuda(lambda: fn(rows), 20, flush),
+               "plain_ms": time_cuda(lambda: plain(rows), 10, flush), "max_abs_err": err}
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = None
+        if name == "or_rows":
+            acc = torch.empty(m, dtype=dtype, device=dev)
+
+            def chained():
+                torch.bitwise_or(rows[0], rows[1], out=acc)
+                for r in rows[2:]:
+                    acc.bitwise_or_(r)
+
+            row["library_ms"] = time_cuda(chained, 20, flush)
+        out[name] = row
+        del rows, got, want
+    return out
+
+
+def read_rows(paths: list, length: int) -> np.ndarray:
+    """The reads of ``paths`` (all ``length`` bases) as rows uint8 [R, length],
+    by the batch reader."""
+    from ntedit_tpu_torch.io import native
+
+    parts = []
+    for p in paths:
+        for seq, offs, _, _ in native.read_batches(p, want_headers=False):
+            if np.any(np.diff(offs) != length):
+                raise AssertionError(f"{p}: a read is not {length} bases")
+            parts.append(seq)
+    return np.concatenate(parts).reshape(-1, length)
+
+
+def joined_on_card(rows: np.ndarray, k: int) -> tuple:
+    """All rows joined with a 0x00 byte after each, in one buffer on the
+    card laid out for the kernels, and its windows."""
+    import torch
+
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    joined = np.zeros((rows.shape[0], rows.shape[1] + 1), dtype=np.uint8)
+    joined[:, :-1] = rows
+    n = joined.size - k + 1
+    buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
+    buf[: joined.size] = torch.from_numpy(joined.reshape(-1))
+    return buf.cuda(), n
+
+
+def sharded_builds(mesh, rows: np.ndarray, k: int) -> dict:
+    """sharded_bf_build into a 2^31-bit plain filter and sharded_cbf_build
+    into 2^29 counters, each held to one kmer_insert / kmer_count over all
+    the reads joined in one buffer; the launch counts set to 0 just before
+    each and read just after."""
+    import torch
+
+    from ntedit_tpu_torch.ops import build_kernel as bk
+    from ntedit_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    seq, n = joined_on_card(rows, k)
+    for name, run, reference in (
+            ("bf", lambda: pmesh.sharded_bf_build(mesh, rows, k, 3, MESH_BITS),
+             lambda t: bk.kmer_insert(seq, n, k, 3, t, "plain", MESH_BITS)),
+            ("cbf", lambda: pmesh.sharded_cbf_build(mesh, rows, k, 3, MESH_SLOTS),
+             lambda t: bk.kmer_count(seq, n, k, 3, t, MESH_SLOTS))):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        want = (torch.zeros(MESH_BITS // 32, dtype=torch.int32, device=seq.device) if name == "bf"
+                else torch.zeros(MESH_SLOTS, dtype=torch.uint8, device=seq.device))
+        reference(want)
+        same = torch.equal(got, want)
+        out[name] = {"wall_s": wall, "launches": launches, "equals_single_build": same,
+                     "set": int(torch.count_nonzero(got))}
+        if not same:
+            raise AssertionError(f"sharded {name} build differs from the single build")
+        del got, want
+        torch.cuda.empty_cache()
+    if min(out["bf"]["launches"]["kmer_insert"], out["bf"]["launches"]["or_rows"],
+           out["cbf"]["launches"]["kmer_count_apply"],
+           out["cbf"]["launches"]["sat_add_rows"]) <= 0:
+        raise AssertionError(f"a sharded build never launched its kernels: {out}")
+    return out
+
+
+def sharded_polish_run(tag: str, work: str, mesh, host_bf, draft_path: str, ref_prefix: str,
+                       cfg, cand: bool = False) -> dict:
+    """parallel.mesh.sharded_polish over every contig of the draft (its
+    default repair threads), rendered by the command line's writers and
+    held to the host-only scan at ``ref_prefix``; then Polisher.polish (-t 8)
+    over the same contigs, its wall beside."""
+    import torch
+
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx, writers
+    from ntedit_tpu_torch.parallel import mesh as pmesh
+
+    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
+    table = bloom.DeviceFilter.from_host(host_bf, mesh.device).table
+    prefix = os.path.join(work, tag)
+    before = os.environ.get("NTEDIT_TPU_CAND")
+    os.environ["NTEDIT_TPU_CAND"] = "1" if cand else "0"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = [pmesh.sharded_polish(mesh, r.header, r.seq, host_bf, table, cfg) for r in recs]
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        if before is None:
+            del os.environ["NTEDIT_TPU_CAND"]
+        else:
+            os.environ["NTEDIT_TPU_CAND"] = before
+    with open(prefix + "_edited.fa", "w") as dfout, \
+         open(prefix + "_changes.tsv", "w") as rfout, \
+         open(prefix + "_variants.vcf", "w") as vfout:
+        rfout.write(writers.changes_tsv_header(cfg.k, cfg.jump, False))
+        vfout.write(writers.vcf_header(draft_path))
+        for res in results:
+            writers.write_contig(res, dfout, rfout, vfout, {}, snv=cfg.snv)
+    same = _same_outputs(prefix, ref_prefix)
+    pol = Polisher(host_bf, None, dataclasses.replace(cfg, threads=8), device="cuda")
+    t0 = time.perf_counter()
+    n = len(list(pol.polish((r.header, r.seq) for r in recs)))
+    polisher_s = time.perf_counter() - t0
+    del table
+    torch.cuda.empty_cache()
+    out = {"wall_s": wall, "polisher_wall_s": polisher_s, "contigs": n,
+           "gate_launches": launches["gate_words"],
+           "cand_launches": _cand_launches(launches),
+           "mask_launches": launches["polish_cand_masks"],
+           "gather_ranks": mesh.size, "byte_identical": same}
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
+    kernel = "snv_cand_words" if cfg.snv else "gate_words"
+    if (_cand_launches(launches) if cfg.snv else launches[kernel]) <= 0 or (
+            cand and launches["polish_cand_masks"] <= 0):
+        raise AssertionError(f"{tag}: a kernel of the sharded polish never launched: {launches}")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+RANK_LINE = re.compile(r"\[rank (\d+)\] (\d+) contigs, ([\d,]+) bp in ([\d.]+)s")
+
+
+def multihost_engine(work: str, bf_path: str, draft_path: str, ref_prefix: str) -> dict:
+    """``python -m ntedit_tpu_torch engine -t 4`` as two processes sharing the
+    card (NTEDIT_TPU_COORDINATOR at a free port: records over gloo), rank 0's
+    merged files held to the host-only scan; each rank's contigs, bases and
+    wall, and the bases' imbalance (process_slice splits by contig count)."""
+    prefix = os.path.join(work, "multihost")
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                       NTEDIT_TPU_COORDINATOR=f"127.0.0.1:{port}", NTEDIT_TPU_NUM_PROCESSES="2",
+                       NTEDIT_TPU_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ntedit_tpu_torch", "engine", "-r", bf_path, "-f",
+                 draft_path, "-b", prefix, "-t", "4"], cwd=HERE, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"multi-host engine rank failed ({p.returncode}):\n{log[-4000:]}")
+    ranks = []
+    for log in logs:
+        m = RANK_LINE.search(log)
+        if m is None:
+            raise AssertionError(f"no rank line in:\n{log[-4000:]}")
+        head = re.search(r"\[rank \d+/2\] contigs \[(\d+), (\d+)\) of (\d+)", log)
+        ranks.append({"rank": int(m.group(1)), "contigs": int(m.group(2)),
+                      "bp": int(m.group(3).replace(",", "")), "wall_s": float(m.group(4)),
+                      "slice": [int(head.group(1)), int(head.group(2))] if head else None})
+    same = _same_outputs(prefix, ref_prefix)
+    bp = [r["bp"] for r in ranks]
+    out = {"wall_s": wall, "ranks": ranks, "bp_imbalance": max(bp) / max(1, min(bp)),
+           "byte_identical": same}
+    if not all(same.values()):
+        raise AssertionError(f"multi-host engine: outputs differ from the host-only scan: {same}")
+    return out
+
+
+def phase_mesh(work: str) -> dict:
+    """The reduce kernels against their plain versions and timed; a world of
+    one rank on the card (NCCL): the sharded builds of phase 6's reads, the
+    sharded polish of phase 3's draft (blocked, NTEDIT_TPU_CAND=1, plain)
+    and of phase 5's reference with -s 1; the multi-host engine as two
+    processes sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.parallel import distributed, mesh as pmesh
+
+    out = {"phase": "mesh", "reduce": check_reduce()}
+    flush = flush_buffer()
+    out["reduce"]["numbers"] = reduce_numbers(flush)
+    del flush
+    torch.cuda.empty_cache()
+    k = 25
+    distributed.initialize(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1,
+                           process_id=0, device="cuda")
+    try:
+        mesh = pmesh.make_mesh()
+        out["world"] = {"ranks": mesh.size, "backend": str(dist.get_backend())}
+        t0 = time.perf_counter()
+        # phase filter_build's two gzip FASTQ files
+        rows = read_rows([os.path.join(work, f"reads_{i}.fq.gz") for i in (1, 2)], READ_LEN)
+        out["reads"] = {"rows": int(rows.shape[0]), "read_s": time.perf_counter() - t0}
+        out["builds"] = sharded_builds(mesh, rows, k)
+        del rows
+        cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
+        blk = bloom.load_any(os.path.join(work, "main_blocked.bf"))
+        draft = os.path.join(work, "draft50.fa")
+        ref = os.path.join(work, "main_blocked_ref")
+        out["polish_blocked"] = sharded_polish_run("mesh_blocked", work, mesh, blk, draft, ref,
+                                                   cfg)
+        out["polish_cand"] = sharded_polish_run("mesh_cand", work, mesh, blk, draft, ref, cfg,
+                                                cand=True)
+        del blk
+        pl = bloom.load_any(os.path.join(work, "main_plain.bf"))
+        out["polish_plain"] = sharded_polish_run("mesh_plain", work, mesh, pl, draft,
+                                                 os.path.join(work, "main_plain_ref"), cfg)
+        del pl
+        snv = bloom.load_any(os.path.join(work, "snv_blocked.bf"))
+        out["snv_blocked"] = sharded_polish_run(
+            "mesh_snv", work, mesh, snv, os.path.join(work, "ref50.fa"),
+            os.path.join(work, "snv_blocked_ref"), dataclasses.replace(cfg, snv=True))
+        del snv
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["multihost_engine"] = multihost_engine(work, os.path.join(work, "main_blocked.bf"),
+                                               draft, ref)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     import argparse
@@ -2415,6 +2776,9 @@ def main(argv=None) -> int:
         build = timed("filter_build", phase_filter_build, work, against)
         build_numbers = build.pop("kernel_numbers")
         emit(build)
+        torch.cuda.empty_cache()
+        mesh = timed("mesh", phase_mesh, work)
+        emit(mesh)
     torch.cuda.reset_peak_memory_stats()
     numbers = timed("numbers", phase_numbers, power, against)
     numbers["build"] = build_numbers
@@ -2572,6 +2936,26 @@ def main(argv=None) -> int:
             "library_ms": None,
             "floor_ms": one["floor_ms"],
             **extra,
+        })
+    # the collectives' reduce: launches from the world-of-one sharded
+    # builds, times at the shape the collective at D = 4 gives it
+    for name, line, build_name in (("or_rows", 58, "bf"), ("sat_add_rows", 78, "cbf")):
+        one = mesh["reduce"]["numbers"][name]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ntedit_tpu_torch/csrc/mesh_kernel.cu",
+            "replaces": f"ntedit_tpu/parallel/mesh.py:{line}",
+            "launches": mesh["builds"][build_name]["launches"][name],
+            "matches_plain": mesh["reduce"]["differing"] == 0,
+            "max_abs_err": max(one["max_abs_err"], mesh["reduce"]["max_abs_err"]),
+            "ms": one["ms"],
+            "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": one["library_ms"],
+            "rows": one["rows"],
+            "m": one["m"],
         })
     emit({"kernels": lines, "power_limit": power, "seconds": time.perf_counter() - t_start,
           "phase_s": phase_s})

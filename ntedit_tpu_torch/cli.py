@@ -20,9 +20,15 @@ run resumes where it stopped.  ``-v`` prints each contig's header and the
 Oracle's trial lines (those of its scalar site path, as the JAX package
 prints them).  With ``NTEDIT_TPU_TRACE=<dir>`` set, the
 engine's run is profiled into a Chrome trace there (utils/profiling.py).
-Not ported: multi-host polishing, which raises.  The read-filter build
-makes the JAX package's device layout (blocked, power-of-two sizes) on the
-card and on the CPU.
+The read-filter build makes the JAX package's device layout (blocked,
+power-of-two sizes) on the card and on the CPU.
+
+Multi-host runs (parallel/distributed.py): every process is launched with
+``NTEDIT_TPU_COORDINATOR=host:port``, ``NTEDIT_TPU_NUM_PROCESSES=N`` and
+``NTEDIT_TPU_PROCESS_ID=i`` (or ``NTEDIT_TPU_DISTRIBUTED=1`` under a
+launcher's ``env://`` variables); ``main`` joins the process group once
+``--device`` is known.  Each rank polishes its contiguous share of the
+contigs and rank 0 writes the merged files in input order.
 """
 
 from __future__ import annotations
@@ -37,7 +43,6 @@ import time
 from collections import deque
 
 VERSION = "ntedit_tpu_torch 0.1.0 (capabilities of ntEdit v2.1.1)"
-NOT_PORTED = "is not ported to the torch package yet (see ROADMAP.md)"
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +209,13 @@ def _run_engine(
 
     clinvar = writers.read_annotation_vcf(vcf_path) if vcf_path else {}
 
+    from ntedit_tpu_torch.parallel import distributed as dist
+
+    if dist.active():
+        _run_engine_multihost(host_bf, bloomrep, cfg, draft_path, prefix, clinvar, device,
+                              site_rows, engine)
+        return prefix
+
     print(
         f"running: {writers.PROGRAM}\n -f {os.path.basename(draft_path)}"
         f"\n -k {k}\n -z {z}\n -b {prefix}\n -r {os.path.basename(bf_path)}"
@@ -289,13 +301,63 @@ def _run_engine(
     return prefix
 
 
-def _refuse_unported() -> None:
-    if os.environ.get("NTEDIT_TPU_COORDINATOR") or os.environ.get("NTEDIT_TPU_DISTRIBUTED"):
-        raise NotImplementedError(f"multi-host polishing {NOT_PORTED}")
+def _run_engine_multihost(host_bf, bloomrep, cfg, draft_path: str, prefix: str, clinvar: dict,
+                          device: str = "cuda", site_rows: bool | None = None,
+                          engine: str = "auto") -> None:
+    """Multi-host polish: every process owns a contiguous slice of the
+    input contigs (distributed.process_slice), polishes them against its
+    own copy of the filter on its own device, renders each contig's three
+    output fragments, and rank 0 writes the merged files in input order
+    after an allgather of the fragments (distributed.gather_records):
+    byte-identical to a single-process run."""
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.io import fastx, writers
+    from ntedit_tpu_torch.parallel import distributed as dist
+
+    n = fastx.count_records(draft_path)
+    sl = dist.process_slice(n)
+    rank = dist.rank()
+    print(f"[rank {rank}/{dist.world_size()}] contigs [{sl.start}, {min(sl.stop, n)}) of {n}",
+          flush=True)
+
+    pol = Polisher(host_bf, bloomrep, cfg, device=dist.local_device(device),
+                   site_rows=site_rows, engine=engine)
+    t0 = time.time()
+    total_bases = n_records = 0
+
+    def owned_stream():
+        for i, rec in enumerate(fastx.read_fastx(draft_path)):
+            if sl.start <= i < sl.stop:
+                yield rec.header, rec.seq
+
+    rendered = []
+    for res in pol.polish(owned_stream()):
+        sinks = io.StringIO(), io.StringIO(), io.StringIO()
+        writers.write_contig(res, *sinks, clinvar, snv=cfg.snv)
+        rendered.append(tuple(s.getvalue() for s in sinks))
+        total_bases += len(res.contig)
+        n_records += len(res.subs)
+    dt = max(time.time() - t0, 1e-9)
+    print(f"[rank {rank}] {len(rendered)} contigs, {total_bases:,} bp in {dt:.2f}s "
+          f"({total_bases / dt:,.0f} bp/s), {n_records} records", flush=True)
+
+    # process_slice is contiguous in input order and gather_records
+    # concatenates in rank order, so the merge is input order
+    parts = dist.gather_records(rendered)
+    if rank == 0:
+        counting = hasattr(host_bf, "counters")
+        with open(prefix + "_edited.fa", "w") as dfout, \
+             open(prefix + "_changes.tsv", "w") as rfout, \
+             open(prefix + "_variants.vcf", "w") as vfout:
+            rfout.write(writers.changes_tsv_header(cfg.k, cfg.jump, counting))
+            vfout.write(writers.vcf_header(draft_path))
+            for fa, tsv, vcf in parts:
+                dfout.write(fa)
+                rfout.write(tsv)
+                vfout.write(vcf)
 
 
 def cmd_engine(args) -> None:
-    _refuse_unported()
     if args.c is not None:
         print(
             "warning: -c has no effect (the v2.1.1 engine overrides the "
@@ -364,7 +426,6 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
 
 
 def cmd_polish(args) -> None:
-    _refuse_unported()
     if args.cap is not None:
         # the reference unconditionally overrides -c with k*1.5 after the
         # BF loads (ntedit.cpp:2450-2451): accepted, warned, ignored
@@ -399,7 +460,6 @@ def cmd_polish(args) -> None:
 
 
 def cmd_snv(args) -> None:
-    _refuse_unported()
     if bool(args.reads) == bool(args.genome):
         raise SystemExit("Please specify --reads OR --genome")
     reference = args.reference or args.draft
@@ -614,6 +674,9 @@ def main(argv=None) -> None:
     if args.mode is None:
         ap.print_help()
         sys.exit(0)
+    from ntedit_tpu_torch.parallel import distributed as dist
+
+    dist.initialize_from_env(args.device)
     args.func(args)
 
 

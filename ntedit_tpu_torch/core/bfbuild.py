@@ -242,12 +242,15 @@ class Histogram:
         return max(1, self.f0 - below)
 
     def save(self, path: str) -> None:
-        """ntCard .hist text format."""
-        with open(path, "w") as f:
+        """ntCard .hist text format, written under a name of this
+        process's own and renamed (ranks may save the same stage file)."""
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             f.write(f"F1\t{self.f1}\n")
             f.write(f"F0\t{self.f0}\n")
             for i in range(1, len(self.spectrum)):
                 f.write(f"{i}\t{int(self.spectrum[i])}\n")
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str, k: int = 0) -> "Histogram":

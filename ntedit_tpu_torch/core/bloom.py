@@ -301,8 +301,10 @@ def load_any(path: str):
 
 def _save(path: str, signature: str, data: np.ndarray, meta: dict) -> None:
     # streamed (tofile), not BytesIO-buffered: a 4 GiB human-scale filter
-    # must not hold two extra in-memory copies on the way to disk
-    tmp = path + ".tmp"
+    # must not hold two extra in-memory copies on the way to disk; written
+    # under a name of this process's own and renamed, so that ranks saving
+    # the same stage file never leave a torn one
+    tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         f.write((signature + "\n").encode())
         for key, val in meta.items():

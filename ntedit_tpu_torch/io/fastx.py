@@ -136,6 +136,15 @@ def _cat(chunks: list[bytes]) -> np.ndarray:
     return np.frombuffer(b"".join(chunks), dtype=np.uint8)
 
 
+def count_records(path: str) -> int:
+    """Number of records in a FASTA/FASTQ(.gz) file, by the batch reader
+    without headers: the records ``read_fastx`` yields.  The multi-host
+    runtime splits the contigs by it (parallel.distributed.process_slice)."""
+    from ntedit_tpu_torch.io import native
+
+    return sum(len(offs) - 1 for _, offs, _, _ in native.read_batches(path, want_headers=False))
+
+
 def write_fasta(path: str, records) -> None:
     """Write (header, seq) pairs, full sequence on one line (the
     reference's output layout, ntedit.cpp:1168)."""

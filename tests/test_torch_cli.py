@@ -230,17 +230,3 @@ def test_stage_cache_dry_run_and_force(pipeline_dirs, tmp_path, capsys):
     out = capsys.readouterr().out
     assert out.count("[running]") == 3 and "Done ntEdit!" in out
     assert read(str(bf)) == before[0]
-
-
-@pytest.mark.parametrize("argv,env", [
-    (["engine", "-r", "x.bf", "-f", "y.fa", "-v", "1"], "NTEDIT_TPU_COORDINATOR"),
-    (["polish", "--draft", "y.fa", "--reads", "r", "-k", "25", "-v"], "NTEDIT_TPU_DISTRIBUTED"),
-])
-def test_not_ported_raise(argv, env, monkeypatch):
-    """Multi-host polishing is what the port has not taken: a run set up for
-    it raises, naming ROADMAP.md, before it reads any input (-v runs)."""
-    from ntedit_tpu_torch import cli
-
-    monkeypatch.setenv(env, "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host.*ROADMAP.md"):
-        cli.main(argv)

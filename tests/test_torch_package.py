@@ -16,7 +16,7 @@ import torch
 from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine import flag
 from ntedit_tpu_torch.engine.polish import Polisher
-from ntedit_tpu_torch.ops import build_kernel, gate_kernel, snv_kernel
+from ntedit_tpu_torch.ops import build_kernel, gate_kernel, mesh_kernel, snv_kernel
 from ntedit_tpu_torch.utils import simulate
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -41,7 +41,8 @@ def test_no_jax_or_reference_imports():
     sources = port_sources()
     assert len(sources) > 15
     names = {p.name for p in sources}
-    assert {"oracle.py", "sitefix.py", "wavefront.py", "native.py", "profiling.py"} <= names
+    assert {"oracle.py", "sitefix.py", "wavefront.py", "native.py", "profiling.py",
+            "distributed.py", "mesh.py", "mesh_kernel.py", "check.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & FORBIDDEN) for p in sources}
     assert not {p: r for p, r in bad.items() if r}
 
@@ -52,7 +53,8 @@ def test_import_leaves_jax_out():
             "ntedit_tpu_torch.core.bfbuild, ntedit_tpu_torch.io.spill, "
             "ntedit_tpu_torch.io.native, ntedit_tpu_torch.engine.oracle, "
             "ntedit_tpu_torch.engine.sitefix, ntedit_tpu_torch.engine.wavefront, "
-            "ntedit_tpu_torch.utils.profiling; "
+            "ntedit_tpu_torch.utils.profiling, ntedit_tpu_torch.parallel.mesh, "
+            "ntedit_tpu_torch.parallel.check; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntedit_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -194,6 +196,28 @@ def test_build_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_
     launched = (build_kernel.kmer_partition, build_kernel.kmer_count_apply) \
         if wrapper == "kmer_count" else (fn,)
     assert all(f.launches == 0 for f in launched)
+
+
+@pytest.mark.parametrize("failure", ["build", "load"])
+@pytest.mark.parametrize("wrapper", ["or_rows", "sat_add_rows"])
+def test_mesh_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path,
+                                                         monkeypatch):
+    if failure == "build":
+        stub = tmp_path / "stub.cu"
+        stub.write_text("this does not compile\n")
+        monkeypatch.setattr(mesh_kernel, "SOURCE", str(stub))
+        monkeypatch.setattr(gate_kernel, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    else:
+        stub = tmp_path / "libstub.so"
+        stub.write_bytes(b"not a shared library")
+        monkeypatch.setattr(mesh_kernel, "build", lambda force=False: str(stub))
+    monkeypatch.setattr(mesh_kernel, "_lib", None)
+    fn = getattr(mesh_kernel, wrapper)
+    dtype = torch.int32 if wrapper == "or_rows" else torch.uint8
+    before = fn.launches
+    with pytest.raises((RuntimeError, OSError)):
+        fn(torch.empty((2, 40), dtype=dtype, device="meta"))
+    assert fn.launches == before
 
 
 def card_draft(rng, length=30_000):
@@ -358,3 +382,41 @@ def test_snv_cand_bins_match_plain_on_the_card(k, slice_bits):
         assert torch.equal(words, plain_words), n
         assert torch.equal(words, snv_kernel.snv_cand_words_plain(seq, n, df)), n
 
+
+def reduce_grid():
+    """(d, rows int32, rows uint8) on the phase 9 grid of chip_smoke.py at
+    a small size: D in {1, 2, 3, 4, 8}; widths 1 to 70 elements (tails of
+    1 to 15 bytes past the 16-byte vectors); zero, all-ones and random
+    words; counters at 0, 1, 128, 254 and 255 and random, and eight rows of
+    40 (320 saturates)."""
+    rng = np.random.default_rng(9)
+    edges = np.array([0, 1, 128, 254, 255], dtype=np.uint8)
+    for d in (1, 2, 3, 4, 8):
+        for m in (1, 2, 3, 4, 5, 15, 16, 17, 31, 33, 63, 64, 70):
+            words = rng.integers(-2**31, 2**31, size=(d, m)).astype(np.int32)
+            words[0, : m // 3] = 0
+            words[-1, m // 2 :] = -1
+            counts = edges[rng.integers(0, 5, size=(d, m))]
+            counts[:, ::4] = rng.integers(0, 256, size=counts[:, ::4].shape)
+            yield d, words, counts
+        yield d, np.zeros((d, 64), np.int32), np.full((d, 64), 40, dtype=np.uint8)
+
+
+@pytest.mark.cuda
+def test_reduce_kernels_match_plain_on_the_card():
+    """or_rows and sat_add_rows against their plain versions, bit for bit,
+    on rows whose vectors are 16-byte aligned and on rows of odd strides
+    (4- and 1-byte vectors)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the reduce kernels have no CPU mode")
+    for d, words, counts in reduce_grid():
+        for host, fn, plain in ((words, mesh_kernel.or_rows, mesh_kernel.or_rows_plain),
+                                (counts, mesh_kernel.sat_add_rows,
+                                 mesh_kernel.sat_add_rows_plain)):
+            rows = torch.from_numpy(host).cuda()
+            got = fn(rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain(rows)), (d, host.shape, host.dtype)
+            # a view one element in: a row stride and start off the 16 bytes
+            wide = torch.from_numpy(np.pad(host, ((0, 0), (1, 0)))).cuda()[:, 1:]
+            assert torch.equal(fn(wide), plain(rows)), (d, host.shape, host.dtype)
