@@ -28,11 +28,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
               the blocked filter the binned candidate pass (its front end's
               bins, as multisets per range, and its probed words) with the
               filter in 1, 16 and 256 slices; the polish site-row kernel
-              (jump 1, 3 and k) and the candidate-mask kernel on the gates
-              of the same inputs plus those heads.  Both site forms also on
-              simulate.site_lists (every gate a cluster start, a cluster of
-              300, starts at list index 0 and 255-257, overlapping scans,
-              h + 2k at n, n + 1 and past the contig) at k = 25 and 1025.
+              (jump 1, 3 and k) and the candidate-mask kernel, gated and
+              with four probes, on the gates of the same inputs plus those
+              heads, and gated on that list in reverse order.  Both site
+              forms also on simulate.site_lists (every gate a cluster
+              start, a cluster of 300, starts at list index 0 and 255-257,
+              overlapping scans, h + 2k at n, n + 1 and past the contig) at
+              k = 25 and 1025.
               On the same k and lengths, with 0x00 separators added: the
               filter-build kernels against their plain versions (the
               compacted hashes at sample slices 0, 1 and 3; the count's
@@ -51,13 +53,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
               host-only full sequential scan of the same C++ engine rendered
               by the same writers.  With the blocked filter also
               ``Polisher(engine="native", cand_masks=True)`` through the
-              Python API, held the same way; the site rows and the masks
-              each on and off in turns, 5 rounds (engine wall and repair
-              alone); and the two polish kernels at the path's shapes
-              (site rows on one 2^22-head chunk's gates, masks on the 30
-              Mbp contig's gates) against their plain versions, their bytes
-              bound, the probe floor and a torch.take yardstick; the site
-              rows in turns with DIR's kernel, 20 rounds.
+              Python API, held the same way, with one gated mask launch
+              (none of the four-probe form: the wrapper counts each form's
+              launches) and one contig upload a contig; the native engine's gates and
+              masks in one pass (flag.contig_gates_and_masks) against the
+              gate pass and the mask pass, 5 rounds in turns; the site rows
+              and the masks each on and off in turns, 5 rounds (engine wall
+              and repair alone); and the two polish kernels at the path's
+              shapes (site rows on one 2^22-head chunk's gates, masks on
+              the 30 Mbp contig's gates, gated and with four probes in
+              turns) against their plain versions, their bytes bound, the
+              probe floor and a torch.take yardstick; the site rows in
+              turns with DIR's kernel, 20 rounds.
 4. counting - the same check with a count-min filter and -p 2 -q 254, in
               polish mode and with -s 1: the SNV path of the configurations
               the candidate kernel does not serve (the gate kernel with snv
@@ -136,9 +143,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
               prints every trial, through the API); the fallback after a
               failed native repair (the repair functions replaced by ones
               that return None) in polish and SNV mode; and
-              ``NTEDIT_TPU_TRACE`` on one ``engine`` run of the 4.7 Mbp
-              contig: its Chrome trace names the gate kernel, and the
-              device's busy share of the trace.  Every run's three files
+              ``NTEDIT_TPU_TRACE`` on two ``engine`` runs of the 4.7 Mbp
+              contig in this process: each Chrome trace names the gate
+              kernel and holds device events (trace() raises on one that
+              holds none), and the device's busy share of each trace.  Every run's three files
               equal the host-only full scan's; each reports its wall and its
               gate and candidate launches.
 
@@ -150,10 +158,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
               timed at the shape the collective at D = 4 gives them (a 256
               MiB filter's words, a 512 MiB count table) against their
               bytes bound, their plain versions and a bitwise_or_ chain.  A
-              world of one rank over NCCL: sharded_bf_build of phase 6's
-              940,000 reads into a 2^31-bit plain filter and
+              world of one rank over NCCL (one untimed collective first,
+              which makes NCCL's communicator): sharded_bf_build of phase
+              6's 940,000 reads into a 2^31-bit plain filter and
               sharded_cbf_build into 2^29 counters, each equal to one
-              kmer_insert / kmer_count over the same reads; sharded_polish
+              kmer_insert / kmer_count over the same reads, each wall
+              beside its kernels' summed device ms; sharded_polish
               over phase 3's draft (256 MiB blocked filter, with
               NTEDIT_TPU_CAND=1, and the plain filter) and over phase 5's
               reference with -s 1, each byte-identical to that phase's
@@ -201,25 +211,6 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # simulated data
 # ---------------------------------------------------------------------------
-
-def make_genome(lengths, seed: int):
-    """Seeded truth contigs and their drafts (simulate.inject_errors
-    defaults plus N runs, IUPAC bytes and a lowercase stretch)."""
-    from ntedit_tpu_torch.utils import simulate
-
-    rng = np.random.default_rng(seed)
-    truths, drafts = [], []
-    for i, L in enumerate(lengths):
-        t = simulate.random_genome(L, seed=seed + 2 * i)
-        d = t
-        if L > 1000:
-            d, _ = simulate.inject_errors(t, seed=seed + 2 * i + 1)
-            d = simulate.decorate(d, rng, n_runs=max(1, L // 5_000_000),
-                                  n_iupac=max(1, L // 1_000_000), lower=min(2000, L // 10))
-        truths.append(t)
-        drafts.append(d)
-    return truths, drafts
-
 
 def write_fasta(path: str, contigs) -> None:
     from ntedit_tpu_torch.io import fastx
@@ -310,7 +301,9 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "site_rows_kernelILi0EE": "site_plain", "site_rows_kernelILi1EE": "site_blocked",
           "polish_rows_kernelILi0EE": "polish_site_plain",
           "polish_rows_kernelILi1EE": "polish_site_blocked",
-          "cand_masks_kernelILi0E": "masks_plain", "cand_masks_kernelILi1E": "masks_blocked",
+          "cand_masks_kernelILi0ELb0E": "masks_plain", "cand_masks_kernelILi1ELb0E": "masks_blocked",
+          "cand_masks_kernelILi0ELb1E": "masks_gated_plain",
+          "cand_masks_kernelILi1ELb1E": "masks_gated_blocked",
           "kmer_valid_count_kernelILb0E": "kmer_valid_count",
           "kmer_valid_count_kernelILb1E": "kmer_valid_count_sampled",
           "kmer_valid_hashes_kernel": "kmer_valid_hashes",
@@ -515,8 +508,9 @@ def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=())
     """The polish site-row and candidate-mask kernels vs their plain
     versions on one input, on the contig's gates (cluster starts, later
     gates and IUPAC-forced ones) plus the heads of ``site_heads``, the rows
-    also on the head lists ``more``: (row cases, differing rows, differing
-    masks)."""
+    also on the head lists ``more``, the masks in both forms (gated and
+    four probes), the gated form also on the list in reverse order: (row
+    cases, differing rows, mask cases, differing masks)."""
     from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
     gates = site_heads(gate_kernel.gate_words_plain(seq_dev, n, df), draft, n, df.k)
@@ -527,9 +521,14 @@ def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=())
             got = snv_kernel.polish_site_rows(seq_dev, n, heads, df, jump)
             want = snv_kernel.polish_site_rows_plain(seq_dev, n, heads, df, jump)
             rows += int((got != want).any(1).sum())
-    got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
-    masks = int((got != snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df)).sum())
-    return len(jumps) * len(lists), rows, masks
+    masks = cases = 0
+    for heads, forms in ((gates, (True, False)), (gates.flip(0), (True,))):
+        for gated in forms:
+            got = snv_kernel.polish_cand_masks(seq_dev, n, heads, df, gated=gated)
+            want = snv_kernel.polish_cand_masks_plain(seq_dev, n, heads, df, gated)
+            masks += int((got != want).sum())
+            cases += 1
+    return len(jumps) * len(lists), rows, cases, masks
 
 
 BUILD_SLICE_BITS = 13  # slices of 8192 counters: the kernel phase's tables split 1, 3 and 7 ways
@@ -691,10 +690,11 @@ def phase_kernel() -> dict:
                 if words or rows or bins:
                     bad.append({"k": k, "filter": name, "L": L, "cand_words": words,
                                 "site_rows": rows, "binned": bins})
-                cases, rows, masks = check_polish_kernels(seq_dev, draft[:L], n, df, jumps, more)
+                cases, rows, mask_cases, masks = check_polish_kernels(seq_dev, draft[:L], n, df,
+                                                                      jumps, more)
                 count["polish_site_cases"] += cases
                 count["polish_site_differing_rows"] += rows
-                count["mask_cases"] += 1
+                count["mask_cases"] += mask_cases
                 count["mask_differing"] += masks
                 if rows or masks:
                     bad.append({"k": k, "filter": name, "L": L, "polish_rows": rows,
@@ -847,18 +847,21 @@ def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
     """``Polisher(engine="native", cand_masks=True)`` through the Python API
     (the command line has no engine switch) over the draft, rendered by the
     command line's writers and held to the host-only full scan at
-    ``ref_prefix``.  The launch counts are set to 0 just before the run and
-    read just after."""
+    ``ref_prefix``.  The launch and contig-upload counts are set to 0 just
+    before the run and read just after: one gated mask launch and one upload
+    a contig (flag.contig_gates_and_masks)."""
+    from ntedit_tpu_torch.engine import flag
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
     from ntedit_tpu_torch.io import fastx, writers
 
     prefix = os.path.join(work, tag)
     reset_launches()
+    flag.uploads = 0
     t0 = time.perf_counter()
     cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
     pol = Polisher(host_bf, None, cfg, device="cuda", engine="native", cand_masks=True)
-    records = 0
+    records = contigs = 0
     with open(prefix + "_edited.fa", "w") as dfout, \
          open(prefix + "_changes.tsv", "w") as rfout, \
          open(prefix + "_variants.vcf", "w") as vfout:
@@ -867,27 +870,35 @@ def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
         for res in pol.polish((r.header, r.seq) for r in fastx.read_fastx(draft_path)):
             writers.write_contig(res, dfout, rfout, vfout, {})
             records += len(res.subs)
+            contigs += 1
     wall = time.perf_counter() - t0
     launches = kernel_launches()
+    uploads = flag.uploads
     same = _same_outputs(prefix, ref_prefix)
     out = {"engine": "native", "cand_masks": True, "wall_s": wall, "records": records,
+           "contigs": contigs, "contig_uploads": uploads,
            "launches": launches["gate_words"], "mask_launches": launches["polish_cand_masks"],
+           "mask_launches_by_form": {form: launches[f"polish_cand_masks.{form}"]
+                                     for form in ("gated", "four_probe")},
            "site_row_launches": launches["polish_site_rows"], "byte_identical": same}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
-    if launches["polish_cand_masks"] <= 0 or launches["gate_words"] <= 0:
-        raise AssertionError(f"{tag}: a kernel of the native path was never launched: {launches}")
+    if launches["gate_words"] <= 0 or out["mask_launches_by_form"] != {
+            "gated": contigs, "four_probe": 0} or uploads != contigs:
+        raise AssertionError(f"{tag}: not one gated mask launch (and no four-probe one) and "
+                             f"one upload a contig: {out}")
     return out
 
 
 def on_off_rounds(host_bf, draft_path: str, threads: int, rounds: int = 5) -> dict:
     """Polish mode's two switches, each on and off in turns (on, off; then
     off, on) for ``rounds`` rounds: the site rows with the pipelined engine,
-    the candidate masks with the native engine.  Each round times the
+    the candidate masks with the native engine (its gates and masks from
+    one pass, flag.contig_gates_and_masks).  Each round times the
     engine's wall (Polisher.polish over the draft, two contigs in flight)
     and the repair alone from the passes' precomputed results (the
     pipelined repair fed the chunks with or without their rows; the
-    segmented repair with or without the masks).  A switch is "kept" when
+    segmented repair with or without the masks of that pass).  A switch is "kept" when
     its run is no slower in at least 4 rounds of 5 (PERF.md)."""
     from ntedit_tpu_torch.engine import flag, native_repair
     from ntedit_tpu_torch.engine.config import EngineConfig
@@ -904,7 +915,10 @@ def on_off_rounds(host_bf, draft_path: str, threads: int, rounds: int = 5) -> di
     with_rows = [list(flag.iter_polish_site_chunks(r.seq, df, cfg.jump)) for r in recs]
     without = [[(f, g) for f, g, _ in c] for c in with_rows]
     gates = [np.concatenate([g for _, g in c]) for c in without]
-    masks = [flag.polish_candidate_masks(r.seq, df, g) for r, g in zip(recs, gates)]
+    one_pass = [flag.contig_gates_and_masks(r.seq, df) for r in recs]
+    if not all(np.array_equal(g, h) for g, (h, _) in zip(gates, one_pass)):
+        raise AssertionError("the one-pass gates differ from the gate stream's")
+    masks = [m for _, m in one_pass]
 
     def repair(switch, on):
         if switch == "rows":
@@ -949,9 +963,13 @@ def on_off_rounds(host_bf, draft_path: str, threads: int, rounds: int = 5) -> di
 def time_split(host_bf, draft_path: str, threads: int) -> dict:
     """The main path's stages one at a time, none overlapped: read the
     draft, upload the filter, the gate pass of every contig (and, for
-    comparison, the gate pass with its site rows and the candidate-mask
-    pass), the threaded repair from those gates, and rendering the
-    outputs."""
+    comparison, the gate pass with its site rows), the threaded repair from
+    those gates, and rendering the outputs.  The native engine's masks in
+    5 rounds in turns (two passes, one; then one, two): the gate pass then
+    the candidate-mask pass from the gates on the host (``gate_pass_s``,
+    ``mask_pass_s``) against flag.contig_gates_and_masks
+    (``gate_and_mask_pass_s``), over every contig; medians, each round's
+    seconds beside."""
     import io
 
     from ntedit_tpu_torch.engine import flag, native_repair
@@ -971,21 +989,37 @@ def time_split(host_bf, draft_path: str, threads: int) -> dict:
     # timed pass carries the warm-up of the ones after it
     longest = max(recs, key=lambda r: len(r.seq))
     flag.polish_candidate_masks(longest.seq, pol.df, pol.gate_positions(longest.seq))
+    flag.contig_gates_and_masks(longest.seq, pol.df, chunk=pol.chunk)
     list(flag.iter_polish_site_chunks(longest.seq, pol.df, cfg.jump))
-    t0 = time.perf_counter()
-    hints = [pol.gate_positions(r.seq) for r in recs]
-    out["gate_pass_s"] = time.perf_counter() - t0
-    out["gates"] = int(sum(len(h) for h in hints))
     t0 = time.perf_counter()
     rows = [list(flag.iter_polish_site_chunks(r.seq, pol.df, cfg.jump)) for r in recs]
     out["gate_and_rows_pass_s"] = time.perf_counter() - t0
     out["valid_rows"] = int(sum(int((x[:, 0] & 1).sum()) for c in rows for _, _, x in c))
     out["exact_gates"] = int(sum(int((x[:, 0] & 32 != 0).sum()) for c in rows for _, _, x in c))
-    t0 = time.perf_counter()
-    masks = [flag.polish_candidate_masks(r.seq, pol.df, h) for r, h in zip(recs, hints)]
-    out["mask_pass_s"] = time.perf_counter() - t0
+    del rows
+    rounds = {"gate_pass_s": [], "mask_pass_s": [], "gate_and_mask_pass_s": []}
+    for i in range(5):
+        for one in ((False, True) if i % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            if one:
+                both = [flag.contig_gates_and_masks(r.seq, pol.df, chunk=pol.chunk) for r in recs]
+                rounds["gate_and_mask_pass_s"].append(time.perf_counter() - t0)
+                continue
+            hints = [pol.gate_positions(r.seq) for r in recs]
+            t1 = time.perf_counter()
+            masks = [flag.polish_candidate_masks(r.seq, pol.df, h) for r, h in zip(recs, hints)]
+            rounds["gate_pass_s"].append(t1 - t0)
+            rounds["mask_pass_s"].append(time.perf_counter() - t1)
+    if not all(np.array_equal(h, g) and np.array_equal(m, x)
+               for h, m, (g, x) in zip(hints, masks, both)):
+        raise AssertionError("flag.contig_gates_and_masks differs from the two passes")
+    out.update({key: float(np.median(v)) for key, v in rounds.items()})
+    out["mask_rounds"] = rounds
+    out["one_pass_faster_rounds"] = sum(a < b + c for a, b, c in zip(
+        rounds["gate_and_mask_pass_s"], rounds["gate_pass_s"], rounds["mask_pass_s"]))
+    out["gates"] = int(sum(len(h) for h in hints))
     out["informative_masks"] = int(sum(int((m != 0xFF).sum()) for m in masks))
-    del rows, masks
+    del masks, both
     t0 = time.perf_counter()
     results = [native_repair.polish_contig_pipelined(
         host_bf, None, cfg, r.header, r.seq, [(len(r.seq) - cfg.k + 1, h)], threads=threads)
@@ -1022,15 +1056,20 @@ def device_share(pol, recs) -> dict:
             "device_top": sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]}
 
 
+# the mask kernel's own keys in the kernels line
+MASK_KEYS = ("probes", "probes_per_informative_gate", "informative", "loads_in_flight")
+
+
 def phase_main(work: str, against=None) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.utils import simulate
     from ntedit_tpu_torch.utils.other import SiteRows
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # GENOME + 5,060 bases
     t0 = time.perf_counter()
-    truths, drafts = make_genome(lengths, seed=500)
+    truths, drafts = simulate.polish_genome(lengths, seed=500)
     draft_path = os.path.join(work, "draft50.fa")
     write_fasta(draft_path, drafts)
     sim_s = time.perf_counter() - t0
@@ -1077,7 +1116,7 @@ def phase_counting(work: str) -> list:
 
     k = 25
     length = CBF_LENGTH
-    truths, drafts = make_genome([length], seed=900)
+    truths, drafts = simulate.polish_genome([length], seed=900)
     draft_path = os.path.join(work, "draft_cbf.fa")
     write_fasta(draft_path, drafts)
     # one counter per bit of the plain filter's size: the same 0.001 FPR
@@ -1342,12 +1381,21 @@ def _launch_counted():
 
 
 def kernel_launches() -> dict:
-    return {fn.__name__: fn.launches for fn in _launch_counted()}
+    """name -> launches of each counted wrapper, and "name.form" -> those of
+    each form where a wrapper counts its forms apart (the mask kernel)."""
+    out = {}
+    for fn in _launch_counted():
+        out[fn.__name__] = fn.launches
+        for form, count in getattr(fn, "form_launches", {}).items():
+            out[f"{fn.__name__}.{form}"] = count
+    return out
 
 
 def reset_launches() -> None:
     for fn in _launch_counted():
         fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
 
 
 def reads_of(run) -> tuple:
@@ -1767,13 +1815,13 @@ def phase_engines(work: str, device: str = "cuda") -> dict:
     from ntedit_tpu_torch.engine.polish import Polisher
     from ntedit_tpu_torch.io import fastx
     from ntedit_tpu_torch.ops import gate_kernel
-    from ntedit_tpu_torch.utils import profiling
+    from ntedit_tpu_torch.utils import profiling, simulate
 
     k = 25
     dev = torch.device(device)
     out = {"phase": "engines", "contig_bp": ENGINE_CONTIG, "draft_bp": SEQ_DRAFT}
     t0 = time.perf_counter()
-    truths, drafts = make_genome([ENGINE_CONTIG, SEQ_DRAFT], seed=1300)
+    truths, drafts = simulate.polish_genome([ENGINE_CONTIG, SEQ_DRAFT], seed=1300)
     big_path, small_path = os.path.join(work, "eng47.fa"), os.path.join(work, "eng05.fa")
     write_fasta(big_path, drafts[:1])
     write_fasta(small_path, drafts[1:])
@@ -1901,28 +1949,31 @@ def phase_engines(work: str, device: str = "cuda") -> dict:
         for name, fn in real.items():
             setattr(native_repair, name, fn)
 
-    # NTEDIT_TPU_TRACE on the default engine run of the bacterial genome
-    logdir = os.path.join(work, "trace")
-    prefix = os.path.join(work, "traced")
-    os.environ[profiling.TRACE_ENV] = logdir
-    reset_launches()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main(["engine", "-r", blk_path, "-f", big_path, "-b", prefix, "-t", "8",
-                      "--device", device])
-    finally:
-        del os.environ[profiling.TRACE_ENV]
-    wall = time.perf_counter() - t0
-    files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
-    out["traced"] = {"wall_s": wall, "gate_launches": kernel_launches()["gate_words"],
-                     "trace_files": len(files),
-                     "byte_identical": _same_outputs(prefix, refs["big"])}
-    if len(files) != 1:
-        raise AssertionError(f"NTEDIT_TPU_TRACE: no single trace file in {logdir}: {files}")
-    out["traced"].update(trace_numbers(os.path.join(logdir, files[0])))
-    if not (out["traced"]["names_gate_kernel"] and all(out["traced"]["byte_identical"].values())):
-        raise AssertionError(f"NTEDIT_TPU_TRACE: {out['traced']}")
+    # NTEDIT_TPU_TRACE on the default engine run of the bacterial genome,
+    # twice in this process: a trace with no device event raises in trace()
+    # (a spent CUPTI session), and that failure is the run's
+    for i, tag in enumerate(("traced", "traced_again")):
+        logdir = os.path.join(work, f"trace{i}")
+        prefix = os.path.join(work, tag)
+        os.environ[profiling.TRACE_ENV] = logdir
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["engine", "-r", blk_path, "-f", big_path, "-b", prefix, "-t", "8",
+                          "--device", device])
+        finally:
+            del os.environ[profiling.TRACE_ENV]
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
+        out[tag] = {"wall_s": wall, "gate_launches": kernel_launches()["gate_words"],
+                    "trace_files": len(files), "byte_identical": _same_outputs(prefix, refs["big"])}
+        if len(files) != 1:
+            raise AssertionError(f"NTEDIT_TPU_TRACE: no single trace file in {logdir}: {files}")
+        out[tag].update(trace_numbers(os.path.join(logdir, files[0])))
+        if not (out[tag]["names_gate_kernel"] and out[tag]["device_events"] > 0
+                and all(out[tag]["byte_identical"].values())):
+            raise AssertionError(f"NTEDIT_TPU_TRACE: {out[tag]}")
     return out
 
 
@@ -2204,15 +2255,87 @@ def covered_bytes(heads, widths, size: int) -> int:
     return int((torch.cumsum(marks, 0)[:size] > 0).sum())
 
 
+def mask_kernel_numbers(seq: np.ndarray, seq_dev, n: int, df, flush, rounds: int = 10) -> dict:
+    """The mask kernel at the native path's shape, the contig's gates (one
+    launch a contig), in both forms, each bit-exact to its plain version,
+    the path's masks (flag.contig_gates_and_masks, and the replay's
+    flag.polish_candidate_masks) to the gated one; each form's probes (and
+    per informative gate), its bytes bound (the gate list, the output, the
+    distinct bytes of the windows, the filter sectors that form probes
+    once), its probe floor (as many random probes from one thread a gate,
+    the form's loads in flight), a torch.take gather of as many words, its
+    plain version's ms; then the two forms in turns, ``rounds`` rounds
+    (gated, four; then four, gated), the median of 5 launches each, L2
+    flushed before each."""
+    import torch
+
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import snv_kernel
+
+    k = df.k
+    host_gates, path_masks = flag.contig_gates_and_masks(seq, df)
+    if not np.array_equal(host_gates, flag.flag_contig_gates(seq, df)):
+        raise AssertionError("flag.contig_gates_and_masks: gates differ from the gate pass")
+    replay_masks = flag.polish_candidate_masks(seq, df, host_gates)
+    gates = torch.from_numpy(host_gates).to(seq_dev.device)
+    g = int(gates.numel())
+    read = covered_bytes(gates, torch.full_like(gates, k), len(seq))
+    out = {"gates": g}
+    forms = {}
+    for name, gated in (("gated", True), ("four_probe", False)):
+        got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df, gated=gated)
+        want = snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df, gated)
+        diff = int((got != want).sum())
+        path_diff = sum(int((torch.from_numpy(m).to(want.device) != want).sum())
+                        for m in (path_masks, replay_masks)) if gated else 0
+        err = int((got.long() - want.long()).abs().max())
+        if diff or path_diff or err:
+            raise AssertionError(f"mask kernel ({name}) differs from plain at the contig shape: "
+                                 f"{diff} masks, {path_diff} of the path's own")
+        clean, hashes, probed = snv_kernel.mask_hashes(seq_dev, n, gates, k, gated)
+        secs, probes = probe_cost(df, torch.cat([h[p] for h, p in zip(hashes, probed)]))
+        sectors = int(torch.unique(torch.cat(secs)).numel())
+        nbytes = 8 * g + g + read + 32 * sectors
+        batch = snv_kernel.MASK_BATCH[gated]
+        floor_ms, take_ms = yardsticks(df.table, probes, g, batch, flush)
+        plain_ms = time_cuda(lambda: snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df,
+                                                                          gated), 1, flush)
+        informative = int(clean.sum())
+        forms[name] = {
+            "informative": informative, "probes": probes,
+            "probes_per_informative_gate": probes / max(informative, 1), "loads_in_flight": batch,
+            "sectors": sectors, "bytes": nbytes, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "floor_ms": floor_ms, "take_ms": take_ms,
+            "differing_masks": diff, "path_differing_masks": path_diff, "max_abs_err": err,
+            "masks": want}
+    if not torch.equal(forms["gated"].pop("masks"), forms["four_probe"].pop("masks")):
+        raise AssertionError("the two mask forms differ at the gates (own k-mer present)")
+    times = {"gated": [], "four_probe": []}
+    for i in range(rounds):
+        for name in (("gated", "four_probe") if i % 2 == 0 else ("four_probe", "gated")):
+            gated = name == "gated"
+            times[name].append(time_cuda(
+                lambda: snv_kernel.polish_cand_masks(seq_dev, n, gates, df, gated=gated), 5, flush))
+    for name, row in forms.items():
+        row["ms"] = float(np.median(times[name]))
+        row["round_ms"] = times[name]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["ms_over_floor"] = row["ms"] / row["floor_ms"]
+    out.update(forms["gated"])
+    out["four_probe"] = forms["four_probe"]
+    out["gated_faster_rounds"] = sum(a < b for a, b in zip(times["gated"], times["four_probe"]))
+    return out
+
+
 def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> dict:
     """The polish kernels at the shapes the main path gives them, on the
     30 Mbp contig: the site-row kernel on its first 2^22-head chunk's gates
     (one launch a chunk on the path), the mask kernel on all its gates (one
-    launch a contig on the native path).  Each against its plain version,
-    with the path's own results (flag.iter_polish_site_chunks,
-    flag.polish_candidate_masks) held to it too; then ms (CUDA events, L2
-    flushed; the rows in turns with ``other``, utils/other.py SiteRows,
-    that checkout's kernel, where given),
+    launch a contig on the native path: mask_kernel_numbers).  The rows
+    against their plain version, with the path's own rows
+    (flag.iter_polish_site_chunks) held to it too; then ms (CUDA events, L2
+    flushed; in turns with ``other``, utils/other.py SiteRows, that
+    checkout's kernel, where given),
     the plain version's ms, the bytes bound (the gate list, the output,
     every distinct byte read, the filter sectors probed once), the probe
     floor (as many random probes from as many threads, the kernel's loads
@@ -2278,34 +2401,8 @@ def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> di
         "ms_over_floor": ms / floor_ms, "differing_rows": diff, "path_differing_rows": path_diff,
         "max_abs_err": err}
 
-    # candidate masks: every gate of the contig
-    host_gates = flag.flag_contig_gates(seq, df)
-    gates = torch.from_numpy(host_gates).to(dev)
-    path_masks = flag.polish_candidate_masks(seq, df, host_gates)
-    got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
-    want = snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df)
-    diff = int((got != want).sum())
-    path_diff = int((torch.from_numpy(path_masks).to(dev) != want).sum())
-    err = int((got.long() - want.long()).abs().max())
-    if diff or path_diff or err:
-        raise AssertionError(f"mask kernel differs from plain at the contig shape: {diff} masks, "
-                             f"{path_diff} of the path's own")
-    g = int(gates.numel())
-    clean, hashes = snv_kernel.mask_hashes(seq_dev, n, gates, k)
-    secs, probes = probe_cost(df, torch.cat(hashes))
-    sectors = int(torch.unique(torch.cat(secs)).numel())
-    nbytes = 8 * g + g + covered_bytes(gates, torch.full_like(gates, k), len(seq)) + 32 * sectors
-    floor_ms, take_ms = yardsticks(df.table, probes, g, snv_kernel.MASK_BATCH, flush)
-    ms = time_cuda(lambda: snv_kernel.polish_cand_masks(seq_dev, n, gates, df), 20, flush)
-    plain_ms = time_cuda(lambda: snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df), 1,
-                         flush)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    out["cand_masks"] = {
-        "gates": g, "informative": int(clean.sum()), "probes": probes, "sectors": sectors,
-        "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
-        "ms_over_floor": ms / floor_ms, "differing_masks": diff, "path_differing_masks": path_diff,
-        "max_abs_err": err}
+    # candidate masks: every gate of the contig, in both forms
+    out["cand_masks"] = mask_kernel_numbers(seq, seq_dev, n, df, flush)
     del df, flush
     torch.cuda.empty_cache()
     return out
@@ -2507,17 +2604,65 @@ def joined_on_card(rows: np.ndarray, k: int) -> tuple:
     return buf.cuda(), n
 
 
+def kernel_event_ms(run) -> tuple:
+    """(run's result, ms by kernel wrapper): ``run()`` with CUDA events on
+    the current stream around each call of the build and reduce kernels'
+    wrappers (the partition and the apply, not kmer_count, which calls
+    them), summed per wrapper after a synchronisation."""
+    import torch
+
+    from ntedit_tpu_torch.ops import build_kernel, mesh_kernel
+
+    events = []
+    real = {(mod, name): getattr(mod, name) for mod, name in (
+        (build_kernel, "kmer_insert"), (build_kernel, "kmer_partition"),
+        (build_kernel, "kmer_count_apply"), (mesh_kernel, "or_rows"),
+        (mesh_kernel, "sat_add_rows"))}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = fn(*args, **kwargs)
+            b.record()
+            events.append((name, a, b))
+            return res
+        call.launches = fn.launches  # the wrapper counts on the name it is called by
+        return call
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, timed(name, fn))
+    try:
+        got = run()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in real.items():
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+    ms: dict = {}
+    for name, a, b in events:
+        ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+    return got, ms
+
+
 def sharded_builds(mesh, rows: np.ndarray, k: int) -> dict:
     """sharded_bf_build into a 2^31-bit plain filter and sharded_cbf_build
     into 2^29 counters, each held to one kmer_insert / kmer_count over all
     the reads joined in one buffer; the launch counts set to 0 just before
-    each and read just after."""
+    each and read just after.  One untimed collective first, where NCCL
+    makes its communicator (``nccl_setup_s``); each build's wall beside
+    its kernels' summed device ms (``kernels_ms``: CUDA events around each
+    kernel call of a second build, kernel_event_ms)."""
     import torch
+    import torch.distributed as dist
 
     from ntedit_tpu_torch.ops import build_kernel as bk
     from ntedit_tpu_torch.parallel import mesh as pmesh
 
-    out = {}
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+    torch.cuda.synchronize()
+    out = {"nccl_setup_s": time.perf_counter() - t0}
     seq, n = joined_on_card(rows, k)
     for name, run, reference in (
             ("bf", lambda: pmesh.sharded_bf_build(mesh, rows, k, 3, MESH_BITS),
@@ -2535,9 +2680,11 @@ def sharded_builds(mesh, rows: np.ndarray, k: int) -> dict:
                 else torch.zeros(MESH_SLOTS, dtype=torch.uint8, device=seq.device))
         reference(want)
         same = torch.equal(got, want)
+        del got
+        got, kernels_ms = kernel_event_ms(run)
         out[name] = {"wall_s": wall, "launches": launches, "equals_single_build": same,
-                     "set": int(torch.count_nonzero(got))}
-        if not same:
+                     "set": int(torch.count_nonzero(got)), "kernels_ms": kernels_ms}
+        if not same or not torch.equal(got, want):
             raise AssertionError(f"sharded {name} build differs from the single build")
         del got, want
         torch.cuda.empty_cache()
@@ -2595,12 +2742,14 @@ def sharded_polish_run(tag: str, work: str, mesh, host_bf, draft_path: str, ref_
            "gate_launches": launches["gate_words"],
            "cand_launches": _cand_launches(launches),
            "mask_launches": launches["polish_cand_masks"],
+           "four_probe_mask_launches": launches["polish_cand_masks.four_probe"],
            "gather_ranks": mesh.size, "byte_identical": same}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
     kernel = "snv_cand_words" if cfg.snv else "gate_words"
     if (_cand_launches(launches) if cfg.snv else launches[kernel]) <= 0 or (
-            cand and launches["polish_cand_masks"] <= 0):
+            cand and launches["polish_cand_masks.gated"] <= 0) or \
+            launches["polish_cand_masks.four_probe"]:
         raise AssertionError(f"{tag}: a kernel of the sharded polish never launched: {launches}")
     return out
 
@@ -2894,11 +3043,28 @@ def main(argv=None) -> int:
             "floor_ms": one["floor_ms"],
             "other_ms": one.get("other_ms"),
             **({key: one[key] for key in SITE_KEYS} if name == "polish_site_rows" else {}),
+            **({key: one[key] for key in MASK_KEYS} if name == "polish_cand_masks" else {}),
             "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                         "plain_ms", "other_ms", *SITE_KEYS)
+                                                         "plain_ms", "other_ms", *SITE_KEYS,
+                                                         *MASK_KEYS)
                                  if key in r}
                         for layout, r in parts.items()},
         })
+        if name == "polish_cand_masks":
+            # both forms of the kernel, each with the launches the wrapper
+            # counted for it on the native path's run (run_native holds them
+            # to one gated launch a contig and no four-probe one)
+            by_form = main_rows[0]["native"]["mask_launches_by_form"]
+            lines[-1]["forms"] = {
+                form: {"launches": by_form[form],
+                       **{key: one_form[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                         "floor_ms", "take_ms", *MASK_KEYS)},
+                       "layouts": {layout: {key: (r if form == "gated" else r["four_probe"])[key]
+                                            for key in ("ms", "bound_ms", "floor_ms",
+                                                        "plain_ms", *MASK_KEYS)}
+                                   for layout, r in parts.items()}}
+                for form, one_form in (("gated", one), ("four_probe", one["four_probe"]))}
+            lines[-1]["gated_faster_rounds"] = one["gated_faster_rounds"]
     # the filter-build kernels: launches from polish --reads, times on its
     # batches at its tables (the count and insert passes: build_sweep)
     count, insert = build_numbers["count"], build_numbers["insert"]

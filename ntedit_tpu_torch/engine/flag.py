@@ -15,13 +15,17 @@ site row, the probe results the host engine would otherwise gather itself.
 
 Polish mode has two such optional passes (ops/snv_kernel.py): site rows
 parallel to each chunk's gates (iter_polish_site_chunks), and the
-substitution-candidate masks of a whole contig's gates
-(polish_candidate_masks).
+substitution-candidate masks of a whole contig's gates: with the gates in
+one pass over the contig on the card (contig_gates_and_masks), or from
+gates the caller holds (polish_candidate_masks).
+
+Every contig upload goes through ``_upload`` and counts in ``uploads``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -68,6 +72,23 @@ def _staged(seq: np.ndarray, size: int, pin: bool) -> torch.Tensor:
     return buf
 
 
+uploads = 0  # contig uploads since the last reset (chip_smoke.py reads it)
+_uploads_lock = threading.Lock()
+
+
+def _upload(seq: np.ndarray, size: int, device) -> tuple:
+    """(the contig zero-padded to ``size`` bytes on ``device``, its host
+    staging buffer): one copy on the current stream, from pinned memory
+    without blocking on CUDA, so the staging buffer must outlive it."""
+    global uploads
+    cuda = device.type == "cuda"
+    staged = _staged(seq, size, pin=cuda)
+    dev_seq = staged.to(device, non_blocking=cuda)
+    with _uploads_lock:
+        uploads += 1
+    return dev_seq, staged
+
+
 def _iter_chunks(seq: np.ndarray, df, snv: bool, min_threshold: int, chunk: int,
                  stream, jump: Optional[int]) -> Iterator[tuple]:
     """iter_gate_chunks, and with ``jump`` the polish rows of each chunk's
@@ -83,7 +104,7 @@ def _iter_chunks(seq: np.ndarray, df, snv: bool, min_threshold: int, chunk: int,
     starts = range(0, n, chunk)
     size = gate_kernel.padded_len(n)
     if df.device.type != "cuda":
-        host = _staged(seq, size, pin=False).to(df.device)
+        host, _ = _upload(seq, size, df.device)
         for start in starts:
             m = min(chunk, n - start)
             words = gate_kernel.gate_words(host[start:], m, df, snv, min_threshold)
@@ -96,11 +117,9 @@ def _iter_chunks(seq: np.ndarray, df, snv: bool, min_threshold: int, chunk: int,
         return
     if stream is None:
         stream = torch.cuda.Stream(df.device)
-    staged = _staged(seq, size, pin=True)
     words_host = torch.empty(-(-n // 32), dtype=torch.int32, pin_memory=True)
     with torch.cuda.stream(stream):
-        dev_seq = torch.empty(size, dtype=torch.uint8, device=df.device)
-        dev_seq.copy_(staged, non_blocking=True)
+        dev_seq, staged = _upload(seq, size, df.device)
         launched = [(start, min(chunk, n - start),
                      gate_kernel.gate_words(dev_seq[start:], min(chunk, n - start), df, snv,
                                             min_threshold))
@@ -213,10 +232,7 @@ def _snv_candidates(seq: np.ndarray, df, chunk: int, bins=None) -> tuple:
     the current stream, which the compaction waits for; the staging buffer
     must outlive the upload."""
     n = len(seq) - df.k + 1
-    cuda = df.device.type == "cuda"
-    staged = _staged(seq, gate_kernel.padded_len(n), pin=cuda)
-    dev_seq = torch.empty(staged.numel(), dtype=torch.uint8, device=df.device)
-    dev_seq.copy_(staged, non_blocking=cuda)
+    dev_seq, staged = _upload(seq, gate_kernel.padded_len(n), df.device)
     words = snv_candidate_words(dev_seq, n, df, chunk, bins)
     return dev_seq, positions_on_device(words), staged
 
@@ -299,23 +315,53 @@ def polish_candidate_masks(
     gates: np.ndarray,
     stream: Optional["torch.cuda.Stream"] = None,
 ) -> np.ndarray:
-    """uint8 masks parallel to the gate heads ``gates`` of one contig
-    (ops/snv_kernel.py polish_cand_masks): bit c = the window's k-mer with
-    its last base set to "ACGT"[c] is in the filter; 0xFF = the window holds
-    a byte that is not ACGT, probe live.  One upload of the contig and of
-    the gates (int64: no limit on the contig's length), one kernel, one
-    byte per gate back.  Needs a blocked or plain filter."""
+    """uint8 masks parallel to the polish-mode gate heads ``gates`` of one
+    contig (ops/snv_kernel.py polish_cand_masks, gated): bit c = the
+    window's k-mer with its last base set to "ACGT"[c] is in the filter,
+    the draft's own base 0 (a gate's own k-mer is absent); 0xFF = the
+    window holds a byte that is not ACGT, probe live.  For callers that
+    hold the gates already (the pipelined engine's replay): one upload of
+    the contig and of the gates (int64: no limit on the contig's length),
+    one kernel, one byte per gate back.  Needs a blocked or plain filter."""
     gates = np.ascontiguousarray(gates, dtype=np.int64)
     n = len(seq) - df.k + 1
     if n <= 0 or not len(gates):
         return np.zeros(len(gates), dtype=np.uint8)
-    cuda = df.device.type == "cuda"
     with _on_stream(df, stream):
-        staged = _staged(seq, len(seq), pin=cuda)
-        dev_seq = torch.empty(len(seq), dtype=torch.uint8, device=df.device)
-        dev_seq.copy_(staged, non_blocking=cuda)
+        dev_seq, _staged_buf = _upload(seq, len(seq), df.device)
         dev_gates = torch.from_numpy(gates).to(df.device)
-        return snv_kernel.polish_cand_masks(dev_seq, n, dev_gates, df).cpu().numpy()
+        return snv_kernel.polish_cand_masks(dev_seq, n, dev_gates, df, gated=True).cpu().numpy()
+
+
+def contig_gates_and_masks(
+    seq: np.ndarray,
+    df,
+    chunk: int = DEFAULT_CHUNK,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> tuple:
+    """(gates int64 [G], masks uint8 [G]) of one contig in polish mode: the
+    gates of flag_contig_gates and the masks of polish_candidate_masks on
+    them, in one pass.  The contig uploads once; the gate kernel runs per
+    chunk; the words are compacted to positions on the card (torch.nonzero
+    waits for the gate kernels); one gated mask launch runs on the
+    resident contig; gates and masks come back together after one
+    synchronisation.  Needs a blocked or plain filter."""
+    n = len(seq) - df.k + 1
+    if n <= 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.uint8)
+    chunk = _effective_chunk(n, chunk)
+    with _on_stream(df, stream):
+        dev_seq, _staged_buf = _upload(seq, gate_kernel.padded_len(n), df.device)
+        words = torch.cat([gate_kernel.gate_words(dev_seq[start:], min(chunk, n - start), df)
+                           for start in range(0, n, chunk)])
+        gates = positions_on_device(words)
+        masks = snv_kernel.polish_cand_masks(dev_seq, n, gates, df, gated=True)
+        if df.device.type != "cuda":
+            return gates.numpy(), masks.numpy()
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                for t in (gates, masks)]
+        torch.cuda.current_stream(df.device).synchronize()
+        return host[0].numpy(), host[1].numpy()
 
 
 def snv_site_data(

@@ -18,8 +18,9 @@ Four engines, as in the JAX package:
 * ``native``: the whole contig's gate hint first, then the segmented
   repair (-t > 1) or the whole-contig engine.  With candidate masks, the
   device also computes at every gate which of the four bases the window's
-  last position may take (flag.polish_candidate_masks), the engine's first
-  substitution probe.
+  last position may take, the engine's first substitution probe: gates and
+  masks in one pass over the contig on the card
+  (flag.contig_gates_and_masks).
 * ``wavefront``: batched numpy rounds over the gate hint
   (engine/wavefront.py); in SNV mode over the device's candidate heads.
   A scan-order-dependent case it cannot batch (WavefrontBailout) goes to
@@ -223,14 +224,24 @@ class Polisher:
         with self._oracle_lock:
             return self.oracle.polish_contig(header, bytes(seq), gate_hint=hint)
 
-    def _native_contig(self, header: str, seq: np.ndarray, hint: np.ndarray,
-                       stream) -> ContigResult:
-        """Polish mode from a whole gate hint: the candidate masks of its
-        gates when switched on, then the segmented repair (-t > 1) or the
-        whole-contig engine."""
+    def _native_contig(self, header: str, seq: np.ndarray, stream,
+                       hint: Optional[np.ndarray] = None) -> ContigResult:
+        """Polish mode from a whole gate hint (the gate pass's when None):
+        the candidate masks of its gates when switched on (with the gates,
+        in one pass over the contig on the card, when the hint is computed
+        here), then the segmented repair (-t > 1) or the whole-contig
+        engine."""
         masks = None
-        if self.cand_masks and self._polish_probes_eligible() and len(hint):
+        masked = self.cand_masks and self._polish_probes_eligible()
+        if hint is None and masked:
+            hint, masks = flag.contig_gates_and_masks(seq, self.df, chunk=self.chunk,
+                                                      stream=stream)
+        elif hint is None:
+            hint = self.gate_positions(seq)
+        elif masked:
             masks = flag.polish_candidate_masks(seq, self.df, hint, stream=stream)
+        if not len(hint):
+            masks = None
         res = None
         if self.cfg.threads > 1:
             res = native_repair.polish_contig_segmented(
@@ -260,7 +271,7 @@ class Polisher:
         if self.cfg.snv:
             return self._snv_contig(header, seq, stream)
         if self.engine == "native":
-            return self._native_contig(header, seq, self.gate_positions(seq), stream)
+            return self._native_contig(header, seq, stream)
         streamed = []
         if self.site_rows and self._polish_probes_eligible():
             chunks = flag.iter_polish_site_chunks(
@@ -278,8 +289,8 @@ class Polisher:
             return res
         # a segment run failed: replay the whole contig from the gates
         # already computed, as the native engine does
-        hint = np.concatenate(streamed) if streamed else self.gate_positions(seq)
-        return self._native_contig(header, seq, hint, stream)
+        return self._native_contig(header, seq, stream,
+                                   np.concatenate(streamed) if streamed else None)
 
     def polish(
         self, contigs: Iterable[Tuple[str, np.ndarray]]

@@ -51,11 +51,16 @@ On the card a block takes 512 gates: its threads write bit 5, list the
 cluster starts with a valid row in shared memory and then compute those
 rows as the SNV form does.
 
-``polish_cand_masks(seq, n, gates, df)`` returns one uint8 per gate head
-(int64, any order): bit c = contains(window at h with its last base set to
-"ACGT"[c]), for all four c, the draft's own base included; 0xFF where
-[h, h + k) holds a byte that is not ACGTacgt.  The engine takes the bits as
-its first substitution probe at pristine windows.
+``polish_cand_masks(seq, n, gates, df, gated=...)`` returns one uint8 per
+head (int64, any order): bit c = contains(window at h with its last base
+set to "ACGT"[c]), for all four c, the draft's own base included; 0xFF
+where [h, h + k) holds a byte that is not ACGTacgt.  ``gated`` has no
+default.  With ``gated=True`` (every caller on a path) the heads are
+absence gates of this filter, so the draft's own base (the window's own
+k-mer) is absent at an ACGTacgt window: its bit is 0 without a probe,
+three probes a gate where ``gated=False`` makes four.  The engine takes
+the bits of the alternates as its first substitution probe at pristine
+windows.  On the card a thread takes a head.
 
 All take a blocked or a plain filter and raise for a counting one (those
 runs go through the gate pass alone).  On a CUDA tensor a wrapper launches
@@ -91,7 +96,9 @@ CAND_BATCH = {"blocked": 6, "plain": 3}
 SITE_BATCH = {"blocked": 8, "plain": 4}
 SITE_LANES = 4  # lanes it gives an SNV row (csrc kRowLanes)
 POLISH_GATES = 512  # gates a block of its polish form takes (csrc kPolishGates)
-MASK_BATCH = 4  # the mask kernel's: the four bases at the site
+# the mask kernel's, by ``gated``: the three alternates at an absence gate,
+# else the four bases at the site (csrc kMaskProbesGated, kMaskProbes)
+MASK_BATCH = {True: 3, False: 4}
 EXACT_GATE = 32  # polish rows: flags bit 5, "device-exact gate"
 # the binned candidate pass: slices of 2^22 filter words (16 MiB), raised
 # until the filter has at most CAND_SLICES of them (utils/snv_sweep.py on
@@ -425,30 +432,35 @@ def polish_site_rows_plain(seq: torch.Tensor, n: int, gates: torch.Tensor, df,
     return rows
 
 
-def mask_hashes(seq: torch.Tensor, n: int, gates: torch.Tensor, k: int) -> tuple:
-    """(clean [G] bool, hashes): the gates whose window [h, h + k) is
-    ACGTacgt only, and for each base c of "ACGT" the canonical hashes [V]
-    of their windows with the last byte set to it, each window hashed from
-    its own bytes."""
+def mask_hashes(seq: torch.Tensor, n: int, gates: torch.Tensor, k: int,
+                gated: bool) -> tuple:
+    """(clean [G] bool, hashes, probed): the gates whose window [h, h + k)
+    is ACGTacgt only, and for each base c of "ACGT" the canonical hashes
+    [V] of their windows with the last byte set to it, each window hashed
+    from its own bytes; ``probed`` [V] bool for each c: whether the kernel
+    probes it (all, or with ``gated`` the bases other than the draft's)."""
     clean, win = _acgt_windows(seq, gates, k, n - 1)
-    hashes = []
+    own = win[:, k - 1].long() & 0xDF
+    hashes, probed = [], []
     for b in ACGT:
         sub = win.clone()
         sub[:, k - 1] = b
         hashes.append(_rotated_hash(sub, k))
-    return clean, hashes
+        probed.append(own != b if gated else torch.ones_like(own, dtype=torch.bool))
+    return clean, hashes, probed
 
 
-def polish_cand_masks_plain(seq: torch.Tensor, n: int, gates: torch.Tensor, df) -> torch.Tensor:
+def polish_cand_masks_plain(seq: torch.Tensor, n: int, gates: torch.Tensor, df,
+                            gated: bool) -> torch.Tensor:
     """The candidate-mask pass in plain torch int64, on any device."""
     _check_filter(df)
     masks = torch.full((gates.shape[0],), 0xFF, dtype=torch.uint8, device=seq.device)
     if not gates.shape[0]:
         return masks
-    clean, hashes = mask_hashes(seq, n, gates, df.k)
+    clean, hashes, probed = mask_hashes(seq, n, gates, df.k, gated)
     bits = torch.zeros(int(clean.sum()), dtype=torch.int64, device=seq.device)
-    for c, can in enumerate(hashes):
-        bits |= _contains(df, can).long() << c
+    for c, (can, on) in enumerate(zip(hashes, probed)):
+        bits |= (_contains(df, can) & on).long() << c
     masks[clean] = bits.to(torch.uint8)
     return masks
 
@@ -498,7 +510,8 @@ def open_library(path: str):
     lib.nts_cand_masks.restype = ctypes.c_int
     lib.nts_cand_masks.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    ctypes.c_void_p, ctypes.c_uint64,                # gates, n_gates
-                                   *filt, ctypes.c_void_p, ctypes.c_void_p]         # masks, stream
+                                   *filt, ctypes.c_int,                             # gated
+                                   ctypes.c_void_p, ctypes.c_void_p]                # masks, stream
     u64, ptr, i32 = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int
     lib.nts_cand_bin.restype = i32
     lib.nts_cand_bin.argtypes = [ptr, u64, i32,                 # seq, n, k
@@ -517,17 +530,18 @@ def open_library(path: str):
         getattr(lib, name).argtypes = []
     lib.nts_cand_batch.restype = ctypes.c_int
     lib.nts_cand_batch.argtypes = [ctypes.c_int]
-    for name in ("nts_mask_batch", "nts_site_lanes", "nts_polish_gates"):
+    for name in ("nts_site_lanes", "nts_polish_gates"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
-    lib.nts_site_batch.restype = ctypes.c_int
-    lib.nts_site_batch.argtypes = [ctypes.c_int]
+    for name in ("nts_site_batch", "nts_mask_batch"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int]
     if (lib.nts_tile_heads(), lib.nts_halo_bytes()) != (gate_kernel.TILE, gate_kernel.HALO):
         raise RuntimeError("SNV kernel tile/halo differ from the wrapper's")
     if any(lib.nts_cand_batch(LAYOUT_CODE[name]) != b for name, b in CAND_BATCH.items()):
         raise RuntimeError("SNV candidate kernel batch differs from the wrapper's")
-    if (lib.nts_mask_batch(), lib.nts_site_lanes(), lib.nts_polish_gates()) != (
-            MASK_BATCH, SITE_LANES, POLISH_GATES) or any(
+    if (lib.nts_site_lanes(), lib.nts_polish_gates()) != (SITE_LANES, POLISH_GATES) or any(
+            lib.nts_mask_batch(int(gated)) != b for gated, b in MASK_BATCH.items()) or any(
             lib.nts_site_batch(LAYOUT_CODE[name]) != b for name, b in SITE_BATCH.items()):
         raise RuntimeError("mask or site kernel batch or lanes differ from the wrapper's")
     if (lib.nts_max_cand_slices(), lib.nts_probe_chunk(), lib.nts_cand_rounds()) != (
@@ -713,14 +727,19 @@ def polish_site_rows(seq: torch.Tensor, n: int, gates: torch.Tensor, df, jump: i
     return rows
 
 
-def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df) -> torch.Tensor:
-    """Candidate masks uint8 [G] of the gate heads ``gates`` (int64 [G], on
+def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df, *,
+                      gated: bool) -> torch.Tensor:
+    """Candidate masks uint8 [G] of the heads ``gates`` (int64 [G], on
     ``seq``'s device) of a contig of ``n`` heads; ``seq`` holds its
-    n + k - 1 bytes.  On CUDA the kernel runs on the current stream and the
-    call does not synchronise."""
+    n + k - 1 bytes.  ``gated`` (no default: a caller names its form):
+    True where the heads are absence gates of ``df``, as on every path
+    (the draft's own base is not probed); False for any heads.  On CUDA
+    the kernel runs on the current stream and the call does not
+    synchronise; each launch counts in ``launches`` and in
+    ``form_launches`` under its form."""
     _check_heads(seq, gates, "candidate masks")
     if seq.device.type == "cpu":
-        return polish_cand_masks_plain(seq, n, gates, df)
+        return polish_cand_masks_plain(seq, n, gates, df, gated)
     lib = load_library()
     _check_filter(df)
     _check_seq(seq, df, n + df.k - 1, aligned=False)
@@ -729,12 +748,13 @@ def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df) -> tor
     if not gates.shape[0]:
         return masks
     rc = lib.nts_cand_masks(seq.data_ptr(), n, df.k, gates.data_ptr(), gates.shape[0],
-                            *_filter_args(df), masks.data_ptr(),
+                            *_filter_args(df), int(bool(gated)), masks.data_ptr(),
                             torch.cuda.current_stream(seq.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"candidate mask kernel launch failed: {lib.nts_error_string(rc).decode()}")
     with _count_lock:
         polish_cand_masks.launches += 1
+        polish_cand_masks.form_launches["gated" if gated else "four_probe"] += 1
     return masks
 
 
@@ -745,10 +765,12 @@ snv_cand_probe.launches = 0
 snv_site_rows.launches = 0
 polish_site_rows.launches = 0
 polish_cand_masks.launches = 0
+polish_cand_masks.form_launches = {"gated": 0, "four_probe": 0}
 
 OCCUPANCY_FORMS = ("cand_plain", "cand_blocked", "site_plain", "site_blocked",
                    "polish_site_plain", "polish_site_blocked", "masks_plain", "masks_blocked",
-                   "cand_bin_count", "cand_bin_scatter", "cand_probe")
+                   "cand_bin_count", "cand_bin_scatter", "cand_probe", "masks_gated_plain",
+                   "masks_gated_blocked")
 
 
 def occupancy() -> dict:

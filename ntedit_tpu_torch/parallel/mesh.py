@@ -326,11 +326,12 @@ def sharded_snv_candidates(mesh: Mesh, tiles: np.ndarray, words, *, k: int, hash
 def sharded_polish_cand_masks(mesh: Mesh, seq: np.ndarray, gates: np.ndarray, words, *,
                               k: int, hash_num: int, nbits: int,
                               blocked: bool = False) -> torch.Tensor:
-    """The substitution-candidate masks uint8 [G] of the gate heads
-    ``gates`` of contig ``seq``: what the JAX package's sharded polish
-    gathers from ``sharded_polish_cand_planes`` with
+    """The substitution-candidate masks uint8 [G] of the polish-mode gate
+    heads ``gates`` of contig ``seq``: what the JAX package's sharded
+    polish gathers from ``sharded_polish_cand_planes`` with
     ``flag.cand_masks_from_planes``.  Each rank computes those of its
-    contiguous share of the gates (``snv_kernel.polish_cand_masks`` over
+    contiguous share of the gates (``snv_kernel.polish_cand_masks``, gated:
+    a gate's own k-mer is absent, so only the alternates are probed, over
     the span of the contig they cover), then an all_gather."""
     _member(mesh)
     df = _device_filter(words, mesh.device, k=k, hash_num=hash_num, nbits=nbits,
@@ -343,7 +344,8 @@ def sharded_polish_cand_masks(mesh: Mesh, seq: np.ndarray, gates: np.ndarray, wo
         lo, hi = int(share[0]), int(share[-1]) + k
         span = torch.from_numpy(np.ascontiguousarray(seq[lo:hi])).to(mesh.device)
         heads = torch.from_numpy(share - lo).to(mesh.device)
-        mine[: len(share)] = snv_kernel.polish_cand_masks(span, hi - lo - k + 1, heads, df)
+        mine[: len(share)] = snv_kernel.polish_cand_masks(span, hi - lo - k + 1, heads, df,
+                                                          gated=True)
     return _gather(mine, mesh)[: len(gates)]
 
 

@@ -9,7 +9,9 @@ the JAX package's utils/profiling.py:
   activity, and the card's kernels and copies when the run is on CUDA,
   written as a Chrome trace (Perfetto, chrome://tracing) into ``logdir``
   or the directory ``NTEDIT_TPU_TRACE`` names.  A no-op when neither is
-  set; a profiler that fails raises.
+  set; a profiler that fails raises, and so does one that was asked for
+  the card's activity and recorded no kernel or copy: no trace is written
+  then.
 * ``StageTimer`` — named wall-clock and throughput accounting.
 """
 
@@ -27,7 +29,9 @@ TRACE_ENV = "NTEDIT_TPU_TRACE"
 def trace(logdir: Optional[str] = None, device=None):
     """Profile the body into ``logdir`` (or ``$NTEDIT_TPU_TRACE``), with
     CUDA activity when ``device`` is a CUDA device.  Yields the path the
-    trace is written to when the body ends, or None when tracing is off."""
+    trace is written to when the body ends, or None when tracing is off.
+    Raises instead of writing a trace that holds no device event where
+    CUDA activity was asked for."""
     logdir = logdir or os.environ.get(TRACE_ENV)
     if not logdir:
         yield None
@@ -45,7 +49,21 @@ def trace(logdir: Optional[str] = None, device=None):
         yield path
         if ProfilerActivity.CUDA in activities:
             torch.cuda.synchronize()
+    if ProfilerActivity.CUDA in activities and not device_events(prof):
+        raise RuntimeError(
+            "torch.profiler recorded no CUDA kernel or copy, so no trace was written to "
+            f"{path}: the likely cause is a CUPTI session already spent in this process "
+            "(an earlier profiler run)")
     prof.export_chrome_trace(path)
+
+
+def device_events(prof) -> int:
+    """The CUDA kernels, copies and sets a finished profiler recorded."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
 
 
 class StageTimer:

@@ -5,7 +5,8 @@ generators (the port keeps its own host code).  The reference validates
 against an E. coli demo (draft with ~0.001 substitution and ~0.0001 indel
 rates, README.md:333); these produce the same *shape* of workload from a
 seed, without the network.  ``decorate`` adds the bytes a draft must
-survive, ``snv_genome`` makes the SNV workload (a reference and a copy
+survive, ``polish_genome`` makes the polish workload's truths and drafts,
+``snv_genome`` makes the SNV workload (a reference and a copy
 with substitutions), and ``fill_counts`` and ``chunk_filters`` build the
 filters the card's runs time the gate kernel with (chip_smoke.py,
 utils/gate_sweep.py, utils/snv_sweep.py).
@@ -94,6 +95,24 @@ def decorate(draft: np.ndarray, rng, n_runs: int, n_iupac: int, lower: int) -> n
         a = int(rng.integers(0, max(1, L - lower)))
         d[a : a + lower] |= 0x20
     return d
+
+
+def polish_genome(lengths, seed: int) -> tuple:
+    """(truths, drafts): seeded truth contigs and their drafts
+    (inject_errors' defaults plus N runs, IUPAC bytes and a lowercase
+    stretch; a contig of 1000 bases or fewer is its own draft)."""
+    rng = np.random.default_rng(seed)
+    truths, drafts = [], []
+    for i, L in enumerate(lengths):
+        t = random_genome(L, seed=seed + 2 * i)
+        d = t
+        if L > 1000:
+            d, _ = inject_errors(t, seed=seed + 2 * i + 1)
+            d = decorate(d, rng, n_runs=max(1, L // 5_000_000),
+                         n_iupac=max(1, L // 1_000_000), lower=min(2000, L // 10))
+        truths.append(t)
+        drafts.append(d)
+    return truths, drafts
 
 
 def snv_genome(lengths, seed: int):

@@ -128,7 +128,8 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
 
 @pytest.mark.parametrize("failure", ["build", "load"])
 @pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows", "polish_site_rows",
-                                     "polish_cand_masks", "snv_cand_bin", "snv_cand_probe"])
+                                     "polish_cand_masks", "polish_cand_masks_gated",
+                                     "snv_cand_bin", "snv_cand_probe"])
 def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -142,7 +143,7 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
     monkeypatch.setattr(snv_kernel, "_lib", None)
     df = bloom.DeviceFilter.from_host(small_filter(), "cpu")
     seq = torch.empty(gate_kernel.padded_len(100), dtype=torch.uint8, device="meta")
-    fn = getattr(snv_kernel, wrapper)
+    fn = getattr(snv_kernel, wrapper.removesuffix("_gated"))
     with pytest.raises((RuntimeError, OSError)):
         heads = torch.empty(3, dtype=torch.int64, device="meta")
         bins = snv_kernel.CandBins(df.modulus, 100, "meta")
@@ -155,10 +156,14 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
             bins.n, bins.columns = 100, snv_kernel.CAND_ROUNDS
             fn(bins, df, words)
         elif wrapper == "polish_cand_masks":
-            fn(seq, 100, heads, df)
+            fn(seq, 100, heads, df, gated=False)
+        elif wrapper == "polish_cand_masks_gated":
+            fn(seq, 100, heads, df, gated=True)
         else:
             fn(seq, 100, heads, df, 3)
     assert fn.launches == 0
+    if wrapper.startswith("polish_cand_masks"):
+        assert fn.form_launches == {"gated": 0, "four_probe": 0}
 
 
 @pytest.mark.parametrize("failure", ["build", "load"])
@@ -306,9 +311,10 @@ def test_polish_kernels_match_plain_on_the_card(layout, k, jump):
         heads = torch.from_numpy(heads).cuda()
         got = snv_kernel.polish_site_rows(seq, n, heads, df, jump)
         assert torch.equal(got, snv_kernel.polish_site_rows_plain(seq, n, heads, df, jump)), name
-    masks = snv_kernel.polish_cand_masks(seq, n, gates, df)
-    assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df))
-    assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0
+    for gated in (False, True):
+        masks = snv_kernel.polish_cand_masks(seq, n, gates, df, gated=gated)
+        assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df, gated))
+        assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0
 
 
 @pytest.mark.cuda

@@ -12,9 +12,14 @@ engines that use them.
   the row's scan reads, where the JAX package checks [h, h + 2k - 1); and
   the port's cluster starts are those of its own gate list, so a head
   after an IUPAC-forced gate starts no cluster.
-* Candidate masks (flag.polish_candidate_masks): equal to the JAX
-  package's at every gate, 0xFF cases included, and computed from int64
-  positions (the JAX gather gives up past 2^31).
+* Candidate masks (flag.polish_candidate_masks, ops/snv_kernel.py
+  polish_cand_masks): the gated form (the heads are absence gates, the
+  draft's own base is not probed) equal to the JAX package's at every gate,
+  0xFF cases included; the four-probe form (gated=False) at any head, its
+  own-base bit the window's own presence; both computed from int64
+  positions (the JAX gather gives up past 2^31); the one-pass
+  flag.contig_gates_and_masks equal to the gate pass followed by the masks,
+  with one contig upload.
 * Polisher(engine="pipelined"|"native", site_rows=, cand_masks=): outputs
   byte-equal to the JAX Polisher with NTEDIT_TPU_SITE_ROWS /
   NTEDIT_TPU_CAND and to the host-only full scan; rows and masks reach the
@@ -46,6 +51,19 @@ CHUNK = 1 << 15
 LENGTH = 70_000  # more than two chunks of heads
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread for the port's plain device passes: these tests
+    run beside other test processes, where the passes' many small parallel
+    ops would wait on threads the other processes hold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def workload(length, seed):
@@ -259,6 +277,9 @@ def test_rows_match_jax_on_index_lists(name, monkeypatch):
 
 @pytest.mark.parametrize("layout", ["blocked", "plain"])
 def test_masks_match_jax(layout):
+    """On the gates of a contig longer than two chunks (IUPAC windows, an N
+    run, a lowercase stretch): the gated masks, through flag and from the
+    plain version, equal the JAX package's."""
     k = 25
     truth, draft = workload(LENGTH, seed=44)
     _, jdf, _, tdf = filters(layout, k, truth)
@@ -267,10 +288,65 @@ def test_masks_match_jax(layout):
     got = tflag.polish_candidate_masks(draft, tdf, gates)
     assert got.dtype == np.uint8 and got.shape == gates.shape
     np.testing.assert_array_equal(got, want)
+    n = len(draft) - k + 1
+    plain = snv_kernel.polish_cand_masks_plain(torch.from_numpy(draft), n,
+                                               torch.from_numpy(gates), tdf, gated=True)
+    np.testing.assert_array_equal(plain.numpy(), want)
     other = window_has(draft, gates, k, np.setdiff1d(np.arange(256), ACGT))
     np.testing.assert_array_equal(got == 0xFF, other)
     assert other.sum() > 100 and (got[~other] != 0).sum() > 100
+    lower = (draft[gates + k - 1] >= ord("a")) & ~other
+    assert lower.sum() > 5 and (got[lower] != 0).any()
     assert tflag.polish_candidate_masks(draft, tdf, gates[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("layout", ["blocked", "plain"])
+def test_mask_forms_at_any_head(layout):
+    """At every head of a stretch (gates and present windows): the
+    four-probe form's bit for the draft's own base is the window's own
+    presence, its other bits the alternates'; the gated form is the same
+    with that bit 0, and at the gates the two forms agree."""
+    k = 25
+    truth, draft = workload(20_000, seed=45)
+    *_, tdf = filters(layout, k, truth)
+    n = len(draft) - k + 1
+    seq = torch.from_numpy(draft)
+    heads = torch.arange(0, n + 3, dtype=torch.int64)  # and three past the last window
+    four = snv_kernel.polish_cand_masks(seq, n, heads, tdf, gated=False).numpy()
+    three = snv_kernel.polish_cand_masks(seq, n, heads, tdf, gated=True).numpy()
+    clean = four != 0xFF
+    assert (~clean[n:]).all() and clean.sum() > n // 2
+    own = 1 << np.searchsorted(ACGT, draft[np.minimum(heads.numpy(), n - 1) + k - 1] & 0xDF)
+    own = own.astype(np.uint8)
+    gate = np.zeros(n + 3, dtype=bool)
+    gate[tflag.flag_contig_gates(draft, tdf, chunk=CHUNK)] = True
+    np.testing.assert_array_equal((four[clean] & own[clean]) != 0, ~gate[clean])
+    np.testing.assert_array_equal(three[clean], four[clean] & ~own[clean])
+    np.testing.assert_array_equal(three[~clean], four[~clean])
+    np.testing.assert_array_equal(three[gate], four[gate])
+
+
+@pytest.mark.parametrize("layout,chunk", [("blocked", CHUNK), ("plain", CHUNK),
+                                          ("blocked", tflag.DEFAULT_CHUNK)])
+def test_contig_gates_and_masks_equal_two_passes(layout, chunk):
+    """flag.contig_gates_and_masks equals flag_contig_gates followed by
+    polish_candidate_masks, across chunk seams or in one chunk, with one
+    contig upload where the two passes make two; and on contigs with no
+    gate or no window."""
+    k = 25
+    truth, draft = workload(LENGTH, seed=46)
+    *_, tdf = filters(layout, k, truth)
+    before = tflag.uploads
+    gates, masks = tflag.contig_gates_and_masks(draft, tdf, chunk=chunk)
+    assert tflag.uploads == before + 1
+    want = tflag.flag_contig_gates(draft, tdf, chunk=chunk)
+    np.testing.assert_array_equal(gates, want)
+    np.testing.assert_array_equal(masks, tflag.polish_candidate_masks(draft, tdf, want))
+    assert gates.dtype == np.int64 and masks.dtype == np.uint8 and len(gates) > 500
+    clean = truth[:5000]
+    for seq in (clean, clean[: k - 1]):
+        g, m = tflag.contig_gates_and_masks(seq, tdf, chunk=chunk)
+        assert g.shape == m.shape == (0,)
 
 
 def test_mask_positions_above_2_31():
@@ -286,10 +362,11 @@ def test_mask_positions_above_2_31():
     big = torch.full((1,), ord("A"), dtype=torch.uint8).expand(length)
     heads = torch.tensor([5, (1 << 31) - 1, 1 << 31, (1 << 31) + 7, (1 << 32) + 3,
                           length - k], dtype=torch.int64)
-    masks = snv_kernel.polish_cand_masks(big, length - k + 1, heads, df)
+    masks = snv_kernel.polish_cand_masks(big, length - k + 1, heads, df, gated=False)
     assert masks.tolist() == [0b0010] * len(heads)
     past = torch.tensor([length - k + 1, -1], dtype=torch.int64)  # no window there
-    assert snv_kernel.polish_cand_masks(big, length - k + 1, past, df).tolist() == [0xFF] * 2
+    assert snv_kernel.polish_cand_masks(big, length - k + 1, past, df,
+                                        gated=False).tolist() == [0xFF] * 2
 
 
 def host_scan(tf, cfg, draft):
@@ -341,9 +418,9 @@ def spy_on_the_engine(monkeypatch):
 
 def test_rows_and_masks_reach_the_engine(monkeypatch):
     """The pipelined engine with rows hands the native calls rows parallel
-    to their gates, the native engine with masks hands them masks; and the
-    engine acts on what it is handed (rows or masks that claim the wrong
-    probe results change the output)."""
+    to their gates, the native engine with masks hands them masks, from one
+    upload of the contig; and the engine acts on what it is handed (rows or
+    masks that claim the wrong probe results change the output)."""
     k = 25
     truth, draft = workload(30_000, seed=91)
     *_, tf, _ = filters("blocked", k, truth)
@@ -354,7 +431,9 @@ def test_rows_and_masks_reach_the_engine(monkeypatch):
         seen.clear()
         pol = TPolisher(tf, None, cfg, chunk=CHUNK, device="cpu", engine=engine,
                         site_rows=True, cand_masks=True)
+        before = tflag.uploads
         assert pol.polish_contig("c", draft).edited == scan.edited
+        assert tflag.uploads == before + 1
         assert seen
         if engine == "pipelined":
             assert all(c is None and r is not None and r.shape == (n, 6) for n, c, r in seen)
@@ -378,6 +457,33 @@ def test_rows_and_masks_reach_the_engine(monkeypatch):
                                              site_rows=rows, gate_cand=tflag.polish_candidate_masks(
                                                  draft, pol.df, gates))
     assert res.edited == scan.edited
+
+
+def test_replay_takes_the_masks_of_the_streamed_gates(monkeypatch):
+    """The pipelined engine with masks on, its segment run failed: the
+    replay hands the native engine the streamed gates with their gated
+    masks, and the output is the host-only scan's."""
+    k = 25
+    truth, draft = workload(30_000, seed=93)
+    *_, tf, _ = filters("blocked", k, truth)
+    cfg = TConfig(k=k, hash_num=3, threads=4)
+    scan = host_scan(tf, cfg, draft)
+    real = native_repair.polish_contig_pipelined
+
+    def failed(*args, collect_gates=None, **kw):
+        res = real(*args, collect_gates=collect_gates, **kw)
+        assert res is not None and collect_gates
+        return None
+
+    monkeypatch.setattr(native_repair, "polish_contig_pipelined", failed)
+    seen = spy_on_the_engine(monkeypatch)
+    pol = TPolisher(tf, None, cfg, chunk=CHUNK, device="cpu", cand_masks=True)
+    assert render(twriters, pol.polish_contig("ctg one", draft)) == render(twriters, scan)
+    gates = tflag.flag_contig_gates(draft, pol.df, chunk=CHUNK)
+    want = tflag.polish_candidate_masks(draft, pol.df, gates)
+    masks = [c for n, c, _ in seen if c is not None]
+    assert masks and sum(len(c) for c in masks) == len(gates)
+    np.testing.assert_array_equal(np.concatenate(masks), want)
 
 
 @pytest.mark.parametrize("case", ["counting", "reject", "mode2"])

@@ -37,6 +37,51 @@ def test_trace_writes_a_chrome_trace(tmp_path, monkeypatch, source):
     assert any("aten::mul" in str(e.get("name")) for e in events)
 
 
+def test_trace_without_a_device_event_raises(tmp_path, monkeypatch):
+    """Asked for the card's activity, a profiler that recorded no CUDA
+    kernel or copy (here a stub with host events only) makes trace() raise,
+    naming the spent CUPTI session, and write nothing."""
+    from torch.autograd import DeviceType
+
+    class Event:
+        def __init__(self, device_type, is_user_annotation=False):
+            self.device_type, self.is_user_annotation = device_type, is_user_annotation
+
+    class StubProfile:
+        exported = []
+
+        def __init__(self, activities):
+            self.activities = activities
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):  # host events and a user annotation on the card
+            return [Event(DeviceType.CPU), Event(DeviceType.CUDA, True)]
+
+        def export_chrome_trace(self, path):
+            self.exported.append(path)
+
+    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    logdir = tmp_path / "traces"
+    with pytest.raises(RuntimeError, match="CUPTI"):
+        with profiling.trace(str(logdir), device="cuda"):
+            torch.ones(8).sum()
+    assert StubProfile.exported == [] and not os.listdir(logdir)
+    # the same stub with a kernel recorded writes its trace; host-only
+    # tracing never asks for one
+    monkeypatch.setattr(StubProfile, "events", lambda self: [Event(DeviceType.CUDA)])
+    with profiling.trace(str(logdir), device="cuda") as path:
+        pass
+    with profiling.trace(str(logdir), device="cpu") as host_path:
+        pass
+    assert StubProfile.exported == [path, host_path]
+
+
 def test_engine_command_line_writes_a_trace(tmp_path, monkeypatch):
     from ntedit_tpu_torch import cli
     from ntedit_tpu_torch.core import bloom
