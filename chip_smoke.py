@@ -1399,11 +1399,13 @@ def reset_launches() -> None:
 
 
 def reads_of(run) -> tuple:
-    """``run()`` with the reader's opens counted from 0 and every
-    bfbuild.DeviceBatches it makes recorded: (its result, the batches
-    made, the opens of each path)."""
+    """``run()`` with the reader's opens counted from 0, every
+    bfbuild.DeviceBatches it makes kept, and the program's spans recorded:
+    (its result, the batches made, the opens of each path, the seconds of
+    its ``io.read`` spans)."""
     from ntedit_tpu_torch.core import bfbuild
     from ntedit_tpu_torch.io import native
+    from ntedit_tpu_torch.utils import profiling
 
     made = []
     real = bfbuild.device_batches
@@ -1415,18 +1417,21 @@ def reads_of(run) -> tuple:
     native.read_batches.opens.clear()
     bfbuild.device_batches = record
     try:
-        got = run()
+        with profiling.recording() as rec:
+            got = run()
     finally:
         bfbuild.device_batches = real
-    return got, made, dict(native.read_batches.opens)
+    read_s = sum(s.end_ns - s.start_ns for s in rec.spans if s.name == "io.read") / 1e9
+    return got, made, dict(native.read_batches.opens), read_s
 
 
-def reads_row(made: list, opens: dict, paths: list) -> dict:
+def reads_row(made: list, opens: dict, read_s: float, paths: list) -> dict:
     """The read of ``paths`` by one command: each file's opens (1 when the
-    pieces stayed on the device), the host seconds of the reader (reading,
-    joining and cutting pieces), the passes and the bytes kept."""
+    pieces stayed on the device), the host seconds of the reader (its
+    ``io.read`` spans: reading, joining and cutting pieces), the passes and
+    the bytes kept."""
     return {"opens": {os.path.basename(p): opens.get(p, 0) for p in paths},
-            "read_s": sum(b.read_s for b in made), "passes": sum(b.passes for b in made),
+            "read_s": read_s, "passes": sum(b.passes for b in made),
             "kept_bytes": sum(b.kept_bytes for b in made),
             "budget_bytes": [b.budget for b in made]}
 
@@ -1566,10 +1571,10 @@ def phase_filter_build(work: str, against=None) -> dict:
     out["reads"] = len(truth) * COVERAGE // READ_LEN
 
     # polish --reads: the main path of the build, blocked, cutoff 2
-    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+    (wall, launches, peak), made, opens, io_read_s = reads_of(lambda: run_cli(
         ["polish", "--draft", draft_path, "--reads", prefix, "-k", str(k), "-t", "8", "-b",
          os.path.join(work, "fb")], work))
-    reads = reads_row(made, opens, read_files)
+    reads = reads_row(made, opens, io_read_s, read_files)
     if set(reads["opens"].values()) != {1}:
         raise AssertionError(f"polish --reads read its reads more than once: {reads}")
     for name in ("kmer_valid_hashes", "kmer_partition", "kmer_count_apply", "kmer_solid_bits",
@@ -1599,7 +1604,7 @@ def phase_filter_build(work: str, against=None) -> dict:
     same_bf = isinstance(bf, bloom.BlockedKmerBloomFilter) and np.array_equal(bf.words, words)
     # the same build with budget 0: each pass reads the reads again
     t0 = time.perf_counter()
-    (again, _, _), _, reread_opens = reads_of(lambda: bfbuild.build_read_filter(
+    (again, _, _), _, reread_opens, _ = reads_of(lambda: bfbuild.build_read_filter(
         read_files, k, cutoff=2, hist=hist, device=dev, budget=0))
     torch.cuda.synchronize()
     reread = {"wall_s": time.perf_counter() - t0,
@@ -1632,10 +1637,10 @@ def phase_filter_build(work: str, against=None) -> dict:
     torch.cuda.empty_cache()
 
     # polish --reads --cbf: the counting filter of every valid k-mer
-    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+    (wall, launches, peak), made, opens, io_read_s = reads_of(lambda: run_cli(
         ["polish", "--draft", draft_path, "--reads", prefix, "-k", str(k), "-t", "8", "--cbf",
          "-p", "2", "-q", "254", "-b", os.path.join(work, "fbc")], work))
-    cbf_reads = reads_row(made, opens, read_files)
+    cbf_reads = reads_row(made, opens, io_read_s, read_files)
     if min(launches[name] for name in ("kmer_partition", "kmer_count_apply", "gate_words")) <= 0:
         raise AssertionError(f"polish --cbf never launched its kernels: {launches}")
     cbf = bloom.load_any(f"{prefix}_k{k}.cbf")
@@ -1658,10 +1663,10 @@ def phase_filter_build(work: str, against=None) -> dict:
     # make-genome-bf on phase 3's 50 Mbp draft: btllib size, plain layout
     genome_path = os.path.join(work, "draft50.fa")
     bf_path = os.path.join(work, "genome50.bf")
-    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+    (wall, launches, peak), made, opens, io_read_s = reads_of(lambda: run_cli(
         ["make-genome-bf", "--genome", genome_path, "-k", str(k), "--fpr", "0.01", "-o",
          bf_path], work))
-    genome_reads = reads_row(made, opens, [genome_path])
+    genome_reads = reads_row(made, opens, io_read_s, [genome_path])
     if launches["kmer_insert"] <= 0:
         raise AssertionError(f"make-genome-bf never launched kmer_insert: {launches}")
     gbf = bloom.load_any(bf_path)
@@ -1678,9 +1683,9 @@ def phase_filter_build(work: str, against=None) -> dict:
     # snv --genome on phase 5's 5 Mbp contig and its sample
     # the artifacts land in the working directory, named after the genome
     ref_path, sample_path = os.path.join(work, "ref5.fa"), os.path.join(work, "sample5.fa")
-    (wall, launches, peak), made, opens = reads_of(lambda: run_cli(
+    (wall, launches, peak), made, opens, io_read_s = reads_of(lambda: run_cli(
         ["snv", "--reference", ref_path, "--genome", sample_path, "-k", str(k), "-t", "8"], work))
-    sample_reads = reads_row(made, opens, [sample_path])
+    sample_reads = reads_row(made, opens, io_read_s, [sample_path])
     for name in ("kmer_valid_hashes", "kmer_insert", "snv_cand_words", "snv_site_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"snv --genome never launched {name}: {launches}")

@@ -18,8 +18,10 @@ Every subcommand takes ``--spill auto|on|off`` (default auto: on for drafts
 above 256 MB): the per-contig record spill of io/spill.py, so that a killed
 run resumes where it stopped.  ``-v`` prints each contig's header and the
 Oracle's trial lines (those of its scalar site path, as the JAX package
-prints them).  With ``NTEDIT_TPU_TRACE=<dir>`` set, the
-engine's run is profiled into a Chrome trace there (utils/profiling.py).
+prints them).  With ``NTEDIT_TPU_TRACE=<dir>`` set, the whole subcommand
+(its filter stages and the engine) is profiled into one Chrome trace
+there, with the program's spans and counters on the same timeline
+(utils/profiling.py).
 The read-filter build makes the JAX package's device layout (blocked,
 power-of-two sizes) on the card and on the CPU.
 
@@ -37,10 +39,13 @@ import argparse
 import dataclasses
 import glob
 import io
+import itertools
 import os
 import sys
 import time
 from collections import deque
+
+from ntedit_tpu_torch.utils import profiling
 
 VERSION = "ntedit_tpu_torch 0.1.0 (capabilities of ntEdit v2.1.1)"
 
@@ -63,7 +68,9 @@ class Stages:
         self.force = force
         self.dry_run = dry_run
 
-    def run(self, outputs: list[str], inputs: list[str], desc: str, fn) -> bool:
+    def run(self, name: str, outputs: list[str], inputs: list[str], desc: str, fn) -> bool:
+        """Run the stage ``name`` (its span ``cli.<name>``) unless its
+        outputs are newer than its inputs."""
         need = self.force or any(_stale(o, inputs) for o in outputs)
         if not need:
             print(f"[cached] {desc}", flush=True)
@@ -73,7 +80,8 @@ class Stages:
             return False
         t0 = time.time()
         print(f"[running] {desc}", flush=True)
-        fn()
+        with profiling.span(f"cli.{name}"):
+            fn()
         print(f"[done {time.time() - t0:.1f}s] {desc}", flush=True)
         return True
 
@@ -172,7 +180,6 @@ def _run_engine(
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
     from ntedit_tpu_torch.io import fastx, writers
-    from ntedit_tpu_torch.utils.profiling import trace
 
     host_bf = bloom.load_any(bf_path)
     counting = hasattr(host_bf, "counters")
@@ -234,7 +241,12 @@ def _run_engine(
     events = deque()
 
     def contig_stream():
-        for idx, rec in enumerate(fastx.read_fastx(draft_path)):
+        records = fastx.read_fastx(draft_path)
+        for idx in itertools.count():
+            with profiling.span("io.draft"):
+                rec = next(records, None)
+            if rec is None:
+                return
             # contigs shorter than -z are read but not polished or emitted
             # (ntedit.cpp:2242)
             if len(rec.seq) < cfg.min_contig_len:
@@ -273,23 +285,22 @@ def _run_engine(
         # order: each result belongs to the first fresh event, whose contig
         # was queued before it was polished, and the spilled contigs ahead
         # of it are written first
-        with trace(device=device):  # a Chrome trace when NTEDIT_TPU_TRACE is set
-            for res in pol.polish(contig_stream()):
-                write_cached()
-                _, key = events.popleft()
-                if sp is not None:
-                    sinks = io.StringIO(), io.StringIO(), io.StringIO()
-                    writers.write_contig(res, *sinks, clinvar, snv=cfg.snv)
-                    frags = tuple(s.getvalue() for s in sinks)
-                    sp.put(*key, *frags)
-                    for f, text in zip((dfout, rfout, vfout), frags):
-                        f.write(text)
-                else:
-                    writers.write_contig(res, dfout, rfout, vfout, clinvar, snv=cfg.snv)
-                total_bases += len(res.contig)
-                n_contigs += 1
-                n_records += len(res.subs)
+        for res in pol.polish(contig_stream()):
             write_cached()
+            _, key = events.popleft()
+            if sp is not None:
+                sinks = io.StringIO(), io.StringIO(), io.StringIO()
+                writers.write_contig(res, *sinks, clinvar, snv=cfg.snv)
+                frags = tuple(s.getvalue() for s in sinks)
+                sp.put(*key, *frags)
+                for f, text in zip((dfout, rfout, vfout), frags):
+                    f.write(text)
+            else:
+                writers.write_contig(res, dfout, rfout, vfout, clinvar, snv=cfg.snv)
+            total_bases += len(res.contig)
+            n_contigs += 1
+            n_records += len(res.subs)
+        write_cached()
     if sp is not None:
         sp.finalize()
     dt = max(time.time() - t0, 1e-9)
@@ -408,7 +419,7 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
         bfbuild.count_histogram(read_files, k, device=device,
                                 batches=reads.get()).save(hist_path)
 
-    stages.run([hist_path], read_files, f"ntcard-role histogram -> {hist_path}",
+    stages.run("histogram", [hist_path], read_files, f"ntcard-role histogram -> {hist_path}",
                make_hist)
 
     def make_bf():
@@ -420,7 +431,7 @@ def _reads_filter_stages(stages, reads_prefix, k, cutoff, solid, fpr, device, cb
         filt.save(bf_path)
         print(f"  cutoff={used_cutoff} bytes={filt.bytes}", flush=True)
 
-    stages.run([bf_path], read_files + [hist_path],
+    stages.run("filter", [bf_path], read_files + [hist_path],
                f"ntstat-role filter -> {bf_path}", make_bf)
     return bf_path
 
@@ -452,7 +463,7 @@ def cmd_polish(args) -> None:
         )
 
     stages.run(
-        [prefix + "_edited.fa"], [bf_path, draft],
+        "engine", [prefix + "_edited.fa"], [bf_path, draft],
         f"ntedit polish -> {prefix}_edited.fa", engine,
     )
     if not args.dry_run:
@@ -484,7 +495,7 @@ def cmd_snv(args) -> None:
             bfbuild.count_histogram(args.genome, args.k, device=args.device,
                                     batches=genome.get()).save(hist_path)
 
-        stages.run([hist_path], list(args.genome),
+        stages.run("histogram", [hist_path], list(args.genome),
                    f"ntcard-role genome histogram -> {hist_path}", make_hist)
 
         def make_bf():
@@ -495,7 +506,7 @@ def cmd_snv(args) -> None:
             )
             bf.save(bf_path)
 
-        stages.run([bf_path], list(args.genome) + [hist_path],
+        stages.run("filter", [bf_path], list(args.genome) + [hist_path],
                    f"genome BF -> {bf_path}", make_bf)
         prefix = f"{genome_prefix}_ntedit_k{args.k}"
 
@@ -507,7 +518,7 @@ def cmd_snv(args) -> None:
         )
 
     stages.run(
-        [prefix + "_variants.vcf"], [bf_path, reference],
+        "engine", [prefix + "_variants.vcf"], [bf_path, reference],
         f"ntedit snv -> {prefix}_variants.vcf", engine,
     )
     if not args.dry_run:
@@ -677,7 +688,8 @@ def main(argv=None) -> None:
     from ntedit_tpu_torch.parallel import distributed as dist
 
     dist.initialize_from_env(args.device)
-    args.func(args)
+    with profiling.trace(device=args.device):  # a Chrome trace when NTEDIT_TPU_TRACE is set
+        args.func(args)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -54,6 +53,7 @@ from ntedit_tpu_torch.engine.polish import resolve_device
 from ntedit_tpu_torch.io import fastx, native
 from ntedit_tpu_torch.ops import build_kernel
 from ntedit_tpu_torch.ops.gate_kernel import padded_len
+from ntedit_tpu_torch.utils import profiling
 
 BATCH = 1 << 24  # bytes of separator-joined records per device batch
 LAYOUTS = ("blocked", "plain", "counting")
@@ -118,7 +118,8 @@ def upload_batches(pieces: Iterable[np.ndarray], k: int, device, batch: int = BA
     is valid until the next piece, for work queued on the current stream)
     unless ``keep``: then each piece has a buffer of its own.  On CUDA each
     piece is staged through one pinned host buffer, written again only
-    once its last copy is done."""
+    once its last copy is done.  Each piece's staging is the span
+    ``io.upload``."""
     dev = torch.device(device)
     buf = None
     staged = pinned = None
@@ -136,13 +137,14 @@ def upload_batches(pieces: Iterable[np.ndarray], k: int, device, batch: int = BA
             if buf is None:
                 buf = torch.zeros(padded_len(batch), dtype=torch.uint8, device=dev)
             out = buf
-        if pinned is None:
-            out[: len(piece)].copy_(torch.from_numpy(piece))
-        else:
-            staged.synchronize()  # the previous piece's copy has read the pinned buffer
-            pinned[: len(piece)].numpy()[:] = piece
-            out[: len(piece)].copy_(pinned[: len(piece)], non_blocking=True)
-            staged.record()
+        with profiling.span("io.upload"):
+            if pinned is None:
+                out[: len(piece)].copy_(torch.from_numpy(piece))
+            else:
+                staged.synchronize()  # the previous piece's copy has read the pinned buffer
+                pinned[: len(piece)].numpy()[:] = piece
+                out[: len(piece)].copy_(pinned[: len(piece)], non_blocking=True)
+                staged.record()
         yield out, n
 
 
@@ -162,8 +164,9 @@ class DeviceBatches:
     fit ``budget`` (None: ``default_budget``, taken here, before any table
     of the build is allocated); once they all fit, the later passes iterate
     the kept pieces and the files are read once.  Otherwise every pass
-    reads them again.  ``read_s`` is the host time spent reading and
-    joining records and cutting pieces, summed over the passes."""
+    reads them again.  Each pull of the next piece from the files (reading
+    and joining records, cutting the piece) is the span ``io.read``, and
+    its records' bases count into ``io.read_bases``."""
 
     def __init__(self, paths: Sequence[str], k: int, device, batch: int = BATCH,
                  budget: Optional[int] = None):
@@ -175,7 +178,6 @@ class DeviceBatches:
         self.kept: Optional[list] = None  # the pieces, once a whole pass fitted
         self.kept_bytes = 0
         self.passes = 0
-        self.read_s = 0.0
         self._bases: Optional[int] = None  # the records' bases, after a whole pass
 
     def bases(self) -> int:
@@ -189,9 +191,10 @@ class DeviceBatches:
         bases = [0]
         it = _pieces(_separated(self.paths, bases), self.k, self.batch)
         while True:
-            t0 = time.perf_counter()
-            piece = next(it, None)
-            self.read_s += time.perf_counter() - t0
+            seen = bases[0]
+            with profiling.span("io.read"):
+                piece = next(it, None)
+            profiling.count("io.read_bases", bases[0] - seen)
             if piece is None:
                 self._bases = bases[0]
                 return
@@ -245,12 +248,13 @@ class Histogram:
         """ntCard .hist text format, written under a name of this
         process's own and renamed (ranks may save the same stage file)."""
         tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
-            f.write(f"F1\t{self.f1}\n")
-            f.write(f"F0\t{self.f0}\n")
-            for i in range(1, len(self.spectrum)):
-                f.write(f"{i}\t{int(self.spectrum[i])}\n")
-        os.replace(tmp, path)
+        with profiling.span("io.save"):
+            with open(tmp, "w") as f:
+                f.write(f"F1\t{self.f1}\n")
+                f.write(f"F0\t{self.f0}\n")
+                for i in range(1, len(self.spectrum)):
+                    f.write(f"{i}\t{int(self.spectrum[i])}\n")
+            os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str, k: int = 0) -> "Histogram":
@@ -337,15 +341,17 @@ def count_histogram(paths: Sequence[str], k: int, max_count: int = 255,
     batch's kernel emits only the hashes of the current sample slice and
     counts every valid window beside them.  ``batches``: the reads'
     ``DeviceBatches`` when a build shares them (else made here, keeping
-    the pieces within ``budget`` bytes)."""
+    the pieces within ``budget`` bytes).  The pass and the readback are
+    the span ``build.histogram``."""
     dev = resolve_device(device)
     if batches is None:
         batches = device_batches(paths, k, dev, batch, budget)
-    kept = SampledHashes(sample_budget)
-    for seq, n in batches:
-        s = kept.s
-        kept.add(*build_kernel.kmer_valid_hashes(seq, n, k, s), s)
-    return kept.histogram(k, max_count)
+    with profiling.span("build.histogram"):
+        kept = SampledHashes(sample_budget)
+        for seq, n in batches:
+            s = kept.s
+            kept.add(*build_kernel.kmer_valid_hashes(seq, n, k, s), s)
+        return kept.histogram(k, max_count)
 
 
 def solid_cutoff(hist: Histogram) -> int:
@@ -477,14 +483,17 @@ class FilterBuilder:
 
     def finish(self):
         """Download the filter: BlockedKmerBloomFilter, KmerBloomFilter or
-        KmerCountingBloomFilter8 by layout."""
+        KmerCountingBloomFilter8 by layout (span ``build.download``, which
+        waits for the passes queued before it)."""
         self._live()
         self._finished = True
         if self.layout == "counting":
-            counters = self.counters[: self.slots].cpu().numpy()
+            with profiling.span("build.download"):
+                counters = self.counters[: self.slots].cpu().numpy()
             self.counters = self.bins = None
             return bloom.KmerCountingBloomFilter8(counters, self.hash_num, self.k)
-        words = self.words.cpu().numpy().view(np.uint32)
+        with profiling.span("build.download"):
+            words = self.words.cpu().numpy().view(np.uint32)
         self.words = self.counters = self.solid = self.bins = None  # device tables released
         if self.layout == "blocked":
             return bloom.BlockedKmerBloomFilter(words, self.hash_num, self.k)
@@ -554,16 +563,19 @@ def build_read_filter(
 
     if counts:
         builder = FilterBuilder(k, hash_num, 0, cbf_slots, "counting", dev)
-        for seq, n in batches:
-            builder.count_batch(seq, n)
+        with profiling.span("build.count"):
+            for seq, n in batches:
+                builder.count_batch(seq, n)
         return builder.finish(), hist, cutoff
 
     builder = FilterBuilder(k, hash_num, nbits, slots if cutoff > 1 else 0, layout, dev)
     if cutoff > 1:
+        with profiling.span("build.count"):
+            for seq, n in batches:
+                builder.count_batch(seq, n)
+    with profiling.span("build.insert"):
         for seq, n in batches:
-            builder.count_batch(seq, n)
-    for seq, n in batches:
-        builder.insert_batch(seq, n, cutoff)
+            builder.insert_batch(seq, n, cutoff)
     return builder.finish(), hist, cutoff
 
 
@@ -592,6 +604,7 @@ def build_genome_bf(
         n = num_elements if num_elements is not None else batches.bases()
         bf_bytes = bloom.bf_size_bytes(max(1, n), hash_num, fpr)
     builder = FilterBuilder(k, hash_num, bf_bytes * 8, 0, "plain", dev)
-    for seq, n in batches:
-        builder.insert_batch(seq, n, 1)
+    with profiling.span("build.insert"):
+        for seq, n in batches:
+            builder.insert_batch(seq, n, 1)
     return builder.finish()

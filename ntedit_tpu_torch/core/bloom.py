@@ -32,6 +32,7 @@ import torch
 
 from ntedit_tpu_torch.core import nthash as nt
 from ntedit_tpu_torch.core import nthash_ref as ref
+from ntedit_tpu_torch.utils import profiling
 
 KMER_BF_SIGNATURE = "[BTLKmerBloomFilter_v6]"
 KMER_CBF_SIGNATURE = "[BTLKmerCountingBloomFilter_v6]"
@@ -291,12 +292,13 @@ def check_file_signature(path: str, signature: str) -> bool:
 def load_any(path: str):
     """Load a .bf or .cbf by signature sniffing (BFWrapper behaviour,
     ntedit.cpp:355-364), extended with the framework-native blocked
-    format."""
-    if check_file_signature(path, KMER_CBF_SIGNATURE):
-        return KmerCountingBloomFilter8.load(path)
-    if check_file_signature(path, BLOCKED_BF_SIGNATURE):
-        return BlockedKmerBloomFilter.load(path)
-    return KmerBloomFilter.load(path)
+    format (span ``io.load``)."""
+    with profiling.span("io.load"):
+        if check_file_signature(path, KMER_CBF_SIGNATURE):
+            return KmerCountingBloomFilter8.load(path)
+        if check_file_signature(path, BLOCKED_BF_SIGNATURE):
+            return BlockedKmerBloomFilter.load(path)
+        return KmerBloomFilter.load(path)
 
 
 def _save(path: str, signature: str, data: np.ndarray, meta: dict) -> None:
@@ -305,13 +307,14 @@ def _save(path: str, signature: str, data: np.ndarray, meta: dict) -> None:
     # under a name of this process's own and renamed, so that ranks saving
     # the same stage file never leave a torn one
     tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write((signature + "\n").encode())
-        for key, val in meta.items():
-            f.write(f"{key} = {val}\n".encode())
-        f.write((HEADER_END + "\n").encode())
-        np.ascontiguousarray(data).tofile(f)
-    os.replace(tmp, path)
+    with profiling.span("io.save"):
+        with open(tmp, "wb") as f:
+            f.write((signature + "\n").encode())
+            for key, val in meta.items():
+                f.write(f"{key} = {val}\n".encode())
+            f.write((HEADER_END + "\n").encode())
+            np.ascontiguousarray(data).tofile(f)
+        os.replace(tmp, path)
 
 
 def _load(path: str):

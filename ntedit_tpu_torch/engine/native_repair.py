@@ -22,6 +22,7 @@ import numpy as np
 from ntedit_tpu_torch.core import bloom
 from ntedit_tpu_torch.engine.config import EngineConfig
 from ntedit_tpu_torch.engine.records import ContigResult, RopeCells, SubRec
+from ntedit_tpu_torch.utils import profiling
 from ntedit_tpu_torch.utils.build import build_library, host_cpu
 
 SOURCE = os.path.join(
@@ -144,7 +145,8 @@ def _parallel(arr, gates, width: int, what: str):
 
 def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
              rep_struct, params, gate_cand=None, site_rows=None):
-    """One ntr_polish_contig call with capacity retries.
+    """One ntr_polish_contig call with capacity retries, its gates
+    counted into ``engine.gates``.
 
     ``gate_cand``: uint8 [n_gates] candidate masks parallel to ``gates``
     (flag.polish_candidate_masks), or None.  ``site_rows``: uint8
@@ -166,6 +168,7 @@ def _run_raw(lib, contig: np.ndarray, pristine: bytes, gates, bf_struct,
         gates_ptr, n_gates = None, 0
     gate_cand = _parallel(gate_cand, gates, 0, "candidate masks")
     site_rows = _parallel(site_rows, gates, 6, "site rows")
+    profiling.count("engine.gates", n_gates)
     extra = None
     if gate_cand is not None or site_rows is not None:
         extra = [None if a is None else a.ctypes.data_as(ctypes.c_void_p).value
@@ -245,6 +248,17 @@ def _result(header: str, contig: np.ndarray, sb: np.ndarray, nb: np.ndarray) -> 
                         _subs_of(sb))
 
 
+def _whole_contig(lib, header: str, seq_bytes: bytes, gates, bf_struct, rep_struct, params,
+                  gate_cand=None, site_rows=None) -> Optional[ContigResult]:
+    """One native call over a whole contig (the span ``engine.repair``):
+    its ContigResult, or None when the engine reports an error."""
+    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
+    with profiling.span("engine.repair"):
+        out = _run_raw(lib, contig, seq_bytes, gates, bf_struct, rep_struct, params,
+                       gate_cand, site_rows=site_rows)
+    return None if out is None else _result(header, contig, *out)
+
+
 def polish_contig_native(
     host_bloom,
     host_bloomrep,
@@ -262,13 +276,8 @@ def polish_contig_native(
     lib = get_lib()
     bf_struct, rep_struct, _keep = _filters_of(host_bloom, host_bloomrep)
     params = _params_of(cfg.validate())
-    seq_bytes = bytes(seq)
-    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
-    out = _run_raw(lib, contig, seq_bytes, gate_hint, bf_struct, rep_struct, params,
-                   gate_cand, site_rows=site_rows)
-    if out is None:
-        return None
-    return _result(header, contig, *out)
+    return _whole_contig(lib, header, bytes(seq), gate_hint, bf_struct, rep_struct, params,
+                         gate_cand, site_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -294,13 +303,17 @@ def _gap_margin(cfg) -> tuple:
 def _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin):
     """Closure running one segment: (lo, hi, abs_gates[, masks, rows]) ->
     (sb, nb) raw arrays, "overflow" when activity reaches the right margin,
-    or None on engine failure."""
+    or None on engine failure.  Each run is the span ``engine.repair`` in
+    the worker thread that runs it, with the ids of the span open where the
+    closure is made (the contig's)."""
+    ids = profiling.ids()
 
     def run(lo: int, hi: int, seg_gates_abs: np.ndarray, seg_cand=None, seg_rows=None):
         view = contig[lo:hi]
         pristine = seq_bytes[lo:hi]
-        out = _run_raw(lib, view, pristine, seg_gates_abs - lo, bf_struct,
-                       rep_struct, params, seg_cand, site_rows=seg_rows)
+        with profiling.span("engine.repair", **ids):
+            out = _run_raw(lib, view, pristine, seg_gates_abs - lo, bf_struct,
+                           rep_struct, params, seg_cand, site_rows=seg_rows)
         if out is None:
             return None
         sb, nb = out
@@ -326,12 +339,7 @@ def _finish_segments(lib, header, seq_bytes, contig, all_gates, bf_struct,
         return None
     if any(isinstance(r, str) for r in results):
         # pathological cascade: exact fallback to the sequential whole run
-        contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
-        out = _run_raw(lib, contig, seq_bytes, all_gates, bf_struct,
-                       rep_struct, params)
-        if out is None:
-            return None
-        return _result(header, contig, *out)
+        return _whole_contig(lib, header, seq_bytes, all_gates, bf_struct, rep_struct, params)
 
     # stitch: inter-segment clean spans + per-segment node streams (writers
     # merge coordinate-contiguous spans, so seam splits are render-equal)
@@ -419,15 +427,12 @@ def polish_contig_segmented(
     gate_cand = _parallel(gate_cand, gates, 0, "candidate masks")
 
     gap, _ = _gap_margin(cfg)
-    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
     idx_bounds, margin = _bucket_bounds(gates, cfg, n_buckets=4 * threads)
     if len(idx_bounds) == 1 or threads <= 1:
-        out = _run_raw(lib, contig, seq_bytes, gates, bf_struct, rep_struct, params,
-                       gate_cand, site_rows=site_rows)
-        if out is None:
-            return None
-        return _result(header, contig, *out)
+        return _whole_contig(lib, header, seq_bytes, gates, bf_struct, rep_struct, params,
+                             gate_cand, site_rows)
 
+    contig = np.frombuffer(seq_bytes, dtype=np.uint8).copy()
     runner = _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin)
     jobs = []
     for i0, i1 in idx_bounds:
@@ -517,7 +522,12 @@ def polish_contig_pipelined(
             bucket_rows = []
             bucket_n = 0
 
-        for item in gate_chunks:
+        stream = iter(gate_chunks)
+        while True:
+            with profiling.span("engine.gates"):  # the wait for the device's next chunk
+                item = next(stream, None)
+            if item is None:
+                break
             frontier, g = item[0], np.asarray(item[1], dtype=np.int64)
             chunks.append(g)
             if collect_gates is not None:

@@ -42,6 +42,14 @@ segmented repair, and the site rows the device computes for them stand in
 for the engine's own probes.
 
 The rows and the masks change no output byte, only where the probes run.
+
+Spans (utils/profiling.py): ``engine.load`` (the filter's upload and the
+Oracle), ``engine.contig`` (a contig of ``polish``, with its ordinal in the
+input), ``engine.gates`` (the device's gates or candidates of a contig, or
+the wait for the next chunk of the stream), ``engine.repair`` (a native
+repair call, in the thread that runs it) and ``engine.fallback``; counters
+``engine.bases``, ``engine.records`` and ``engine.gates`` (the gates handed
+to the repair).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from ntedit_tpu_torch.engine import flag, native_repair, wavefront
 from ntedit_tpu_torch.engine.config import EngineConfig
 from ntedit_tpu_torch.engine.oracle import Oracle
 from ntedit_tpu_torch.engine.records import ContigResult
+from ntedit_tpu_torch.utils import profiling
 
 ENGINES = ("pipelined", "native", "wavefront", "sequential")
 
@@ -119,8 +128,9 @@ class Polisher:
         self.chunk = chunk
         self.site_rows = self.cfg.snv if site_rows is None else site_rows
         self.cand_masks = cand_masks
-        self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
-        self.oracle = Oracle(host_bloom, host_bloomrep, self.cfg, fast=fast_sites)
+        with profiling.span("engine.load"):
+            self.df = bloom.DeviceFilter.from_host(host_bloom, self.device)
+            self.oracle = Oracle(host_bloom, host_bloomrep, self.cfg, fast=fast_sites)
         # the wavefront and sequential engines mutate the shared Oracle, and
         # polish() runs two contigs in flight: those paths take this lock
         self._oracle_lock = threading.Lock()
@@ -130,10 +140,11 @@ class Polisher:
 
     def gate_positions(self, seq: np.ndarray) -> np.ndarray:
         """One-shot dense gate pass over a whole contig."""
-        return flag.flag_contig_gates(
-            seq, self.df, snv=self.cfg.snv,
-            min_threshold=self.cfg.min_threshold, chunk=self.chunk,
-        )
+        with profiling.span("engine.gates"):
+            return flag.flag_contig_gates(
+                seq, self.df, snv=self.cfg.snv,
+                min_threshold=self.cfg.min_threshold, chunk=self.chunk,
+            )
 
     def _snv_fast_eligible(self) -> bool:
         """The SNV candidate hint is exact only when the alternate
@@ -158,12 +169,13 @@ class Polisher:
             bins = self._cand_bins.get_nowait()
         except queue.Empty:
             bins = flag.cand_bins(self.df, self.chunk)
-        if rows:
-            got = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
-                                     stream=stream, bins=bins)
-        else:
-            got = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
-                                               stream=stream, bins=bins)
+        with profiling.span("engine.gates"):
+            if rows:
+                got = flag.snv_site_data(seq, self.df, self.cfg.jump, chunk=self.chunk,
+                                         stream=stream, bins=bins)
+            else:
+                got = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
+                                                   stream=stream, bins=bins)
         self._cand_bins.put(bins)  # the candidates are on the host: the bins are free
         return got
 
@@ -190,7 +202,8 @@ class Polisher:
                 self.bloom, self.bloomrep, self.cfg, header, seq,
                 gate_hint=hint if cand is None else cand, site_rows=rows)
         if res is None:
-            return self._fallback(header, seq, hint, cand, stream)
+            with profiling.span("engine.fallback"):
+                return self._fallback(header, seq, hint, cand, stream)
         return res
 
     def _fallback(self, header: str, seq: np.ndarray, hint: Optional[np.ndarray] = None,
@@ -234,12 +247,14 @@ class Polisher:
         masks = None
         masked = self.cand_masks and self._polish_probes_eligible()
         if hint is None and masked:
-            hint, masks = flag.contig_gates_and_masks(seq, self.df, chunk=self.chunk,
-                                                      stream=stream)
+            with profiling.span("engine.gates"):
+                hint, masks = flag.contig_gates_and_masks(seq, self.df, chunk=self.chunk,
+                                                          stream=stream)
         elif hint is None:
             hint = self.gate_positions(seq)
         elif masked:
-            masks = flag.polish_candidate_masks(seq, self.df, hint, stream=stream)
+            with profiling.span("engine.gates"):
+                masks = flag.polish_candidate_masks(seq, self.df, hint, stream=stream)
         if not len(hint):
             masks = None
         res = None
@@ -252,7 +267,8 @@ class Polisher:
                 self.bloom, self.bloomrep, self.cfg, header, seq, gate_hint=hint,
                 gate_cand=masks)
         if res is None:
-            return self._fallback(header, seq, hint, stream=stream)
+            with profiling.span("engine.fallback"):
+                return self._fallback(header, seq, hint, stream=stream)
         return res
 
     def polish_contig(self, header: str, seq: np.ndarray) -> ContigResult:
@@ -292,6 +308,15 @@ class Polisher:
         return self._native_contig(header, seq, stream,
                                    np.concatenate(streamed) if streamed else None)
 
+    def _polish_counted(self, ordinal: int, header: str, seq: np.ndarray) -> ContigResult:
+        """``polish_contig`` as the span ``engine.contig`` of the input's
+        contig ``ordinal``, its bases and records counted."""
+        with profiling.span("engine.contig", contig=ordinal):
+            res = self.polish_contig(header, seq)
+        profiling.count("engine.bases", len(seq))
+        profiling.count("engine.records", len(res.subs))
+        return res
+
     def polish(
         self, contigs: Iterable[Tuple[str, np.ndarray]]
     ) -> Iterator[ContigResult]:
@@ -304,16 +329,16 @@ class Polisher:
         own CUDA stream; results are yielded strictly in input order.  With
         -v they do not, so each contig's trace follows the one before."""
         if self.cfg.threads <= 1 or self.cfg.verbose:
-            for header, seq in contigs:
+            for i, (header, seq) in enumerate(contigs):
                 if len(seq) >= self.cfg.min_contig_len:
-                    yield self.polish_contig(header, seq)
+                    yield self._polish_counted(i, header, seq)
             return
         with ThreadPoolExecutor(max_workers=2) as ex:
             pending = deque()
-            for header, seq in contigs:
+            for i, (header, seq) in enumerate(contigs):
                 if len(seq) < self.cfg.min_contig_len:
                     continue
-                pending.append(ex.submit(self.polish_contig, header, seq))
+                pending.append(ex.submit(self._polish_counted, i, header, seq))
                 while len(pending) > 2:
                     yield pending.popleft().result()
             while pending:

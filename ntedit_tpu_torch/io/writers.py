@@ -31,6 +31,7 @@ import time
 from typing import Optional, TextIO
 
 from ntedit_tpu_torch.engine.records import ContigResult, SubRec
+from ntedit_tpu_torch.utils import profiling
 
 PROGRAM = "ntEditTPU v0.1.0"
 
@@ -149,7 +150,14 @@ def write_contig(
     clinvar: Optional[dict] = None,
     snv: bool = False,
 ) -> None:
-    clinvar = clinvar or {}
+    """One contig's edited sequence, TSV rows and VCF rows (span
+    ``io.render``)."""
+    with profiling.span("io.render"):
+        _write_contig(result, dfout, rfout, vfout, clinvar or {}, snv)
+
+
+def _write_contig(result: ContigResult, dfout: TextIO, rfout: TextIO, vfout: TextIO,
+                  clinvar: dict, snv: bool) -> None:
     hdr = result.header
     contig = result.contig
     subs = list(result.subs)

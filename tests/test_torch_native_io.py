@@ -18,6 +18,7 @@ import torch
 
 from ntedit_tpu_torch.core import bfbuild
 from ntedit_tpu_torch.io import fastx, native
+from ntedit_tpu_torch.utils import profiling
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 # the builds' pieces: three of the read files' 180 kB (few torch calls a pass)
@@ -274,11 +275,14 @@ def test_shared_batches_keep_the_pieces(read_files, one_thread):
     k = 25
     batches = bfbuild.device_batches(read_files, k, "cpu", batch=SMALL_BATCH)
     before = opens_of(read_files)
-    hist = bfbuild.count_histogram(read_files, k, device="cpu", batches=batches)
-    filt, _, _ = bfbuild.build_read_filter(read_files, k, hist=hist, device="cpu",
-                                           batches=batches)
+    with profiling.recording() as rec:
+        hist = bfbuild.count_histogram(read_files, k, device="cpu", batches=batches)
+        filt, _, _ = bfbuild.build_read_filter(read_files, k, hist=hist, device="cpu",
+                                               batches=batches)
     assert [b - a for a, b in zip(before, opens_of(read_files))] == [1, 1]
-    assert batches.passes == 3 and batches.kept is not None and batches.read_s > 0
+    read_ns = sum(s.end_ns - s.start_ns for s in rec.spans if s.name == "io.read")
+    assert batches.passes == 3 and batches.kept is not None and read_ns > 0
+    assert rec.counters["io.read_bases"] == batches.bases()
     ptrs = {seq.data_ptr() for seq, _ in batches.kept}
     assert len(ptrs) == len(batches.kept) > 1
     assert batches.kept_bytes == sum(seq.numel() for seq, _ in batches.kept)
