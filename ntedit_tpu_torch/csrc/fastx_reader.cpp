@@ -10,62 +10,222 @@
 // rewinds to it, so the next call (with larger buffers after -2) reads it
 // whole.  The 2-bit encoder of the original is not part of the copy.
 //
-// It scans decompressed blocks with memchr and returns record batches
-// through a flat C interface (one concatenated sequence buffer and offset
-// arrays), the shape the numpy side wants: per-record Python objects are
-// what make a pure-Python reader slow.
+// It scans decoded bytes with memchr and returns record batches through a
+// flat C interface (one concatenated sequence buffer and offset arrays),
+// the shape the numpy side wants: per-record Python objects are what make
+// a pure-Python reader slow.
+//
+// Where the decoded bytes come from.  A regular file that starts with the
+// gzip magic is mapped, and its members are decoded one at a time by
+// inflate.h into the buffer behind the record in progress, where the line
+// scanner reads them in place: a member whole where its output fits the cap
+// the caller gives, else a stretch of whole deflate blocks of at most the
+// cap at a time, the 32 KiB its matches may reach kept behind it.  From a
+// member that inflate.h refuses (or whose next block alone passes the cap,
+// or for which no buffer can be had) to the file's end, zlib's gzread reads
+// on, the bytes of that member already handed out skipped.  Bytes after the
+// last member that do not begin another are ignored, as gzread ignores
+// them.  Any other file (not gzip, not mappable) is read by gzread, as
+// before.  The buffer is mapped memory, never zero-filled by the reader,
+// and one is kept for the next reader.
 //
 // Build: g++ -O3 -shared -fPIC fastx_reader.cpp -lz (io/native.py builds it
 // at first use).
 
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 #include <zlib.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <string>
-#include <vector>
+
+#include "inflate.h"
 
 namespace {
 
 constexpr size_t kBlock = 1 << 20;
+constexpr size_t kWindow = 1 << 15;       // the farthest a deflate match reaches
+constexpr size_t kKeep = size_t(1) << 28;  // a buffer that held more is not kept
+constexpr size_t kMostRatio = 1032;        // deflate's largest expansion
+
+// Decoded bytes: anonymous mapped memory, its pages touched only as bytes
+// are written (huge pages where the kernel gives them).
+struct Buffer {
+  uint8_t* data = nullptr;
+  size_t alloc = 0;
+  size_t high = 0;  // the most bytes it held
+
+  void release() {
+    if (data != nullptr) munmap(data, alloc);
+    data = nullptr;
+    alloc = high = 0;
+  }
+  // Room for `need` bytes, the first `keep` kept.
+  bool reserve(size_t need, size_t keep) {
+    if (need <= alloc && data != nullptr) return true;
+    const size_t n = std::max(need, std::max(alloc * 2, 4 * kBlock));
+    void* m = mmap(nullptr, n, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE,
+                   -1, 0);
+    if (m == MAP_FAILED) return false;
+    madvise(m, n, MADV_HUGEPAGE);
+    if (keep > 0) memcpy(m, data, keep);
+    const size_t h = high;
+    release();
+    data = static_cast<uint8_t*>(m);
+    alloc = n;
+    high = h;
+    return true;
+  }
+  // Give back the pages past the first `used` bytes.
+  void trim(size_t used) {
+    const size_t page = static_cast<size_t>(sysconf(_SC_PAGESIZE));
+    const size_t from = (used + page - 1) / page * page;
+    if (from < alloc) madvise(data + from, alloc - from, MADV_DONTNEED);
+  }
+};
+
+std::mutex g_spare_mu;
+Buffer g_spare;  // one buffer kept for the next reader (its pages stay mapped)
 
 struct Reader {
-  gzFile gz = nullptr;
-  std::vector<uint8_t> buf;   // decoded pending bytes
-  size_t pos = 0;             // consume cursor into buf
-  size_t mark = 0;            // start of the record in progress (<= pos)
+  gzFile gz = nullptr;            // gzread's file: not a mapped gzip file, or its rest
+  int fd = -1;                    // the mapped file, for gzread to take over
+  const uint8_t* map = nullptr;   // a gzip file, mapped
+  size_t map_len = 0;
+  size_t member = 0;              // where the next member starts in map
+  ntpu_inflate::Member inf;       // the member being decoded, while `in_member`
+  bool in_member = false;
+  size_t cap = 0;                 // the most bytes decoded in one stretch
+  uint64_t whole = 0, streamed = 0;  // decoded bytes by inflater
+  Buffer b;                       // decoded pending bytes b.data[0..size)
+  size_t size = 0;
+  size_t pos = 0;                 // consume cursor
+  size_t mark = 0;                // start of the record in progress (<= pos)
   bool eof = false;
-  int fmt = 0;                // 0 unknown, '>' fasta, '@' fastq
+  int fmt = 0;                    // 0 unknown, '>' fasta, '@' fastq
   std::string err;
 
-  bool fill() {
-    if (eof) return pos < buf.size();
-    if (mark > 0) {  // compact up to the record in progress, never past it
-      buf.erase(buf.begin(), buf.begin() + static_cast<long>(mark));
-      pos -= mark;
-      mark = 0;
+  ~Reader() {
+    if (gz != nullptr) gzclose(gz);
+    if (fd >= 0) close(fd);
+    unmap();
+#ifndef NTPU_READER_NO_SPARE
+    std::lock_guard<std::mutex> lock(g_spare_mu);
+    if (g_spare.data == nullptr && b.high <= kKeep) {
+      g_spare = b;
+      b = Buffer();
     }
-    size_t old = buf.size();
-    buf.resize(old + kBlock);
-    int n = gzread(gz, buf.data() + old, kBlock);
-    if (n < 0) {
-      err = "gzread failed";
+#endif
+    b.release();
+  }
+
+  void fail(const std::string& what) {
+    err = what;
+    eof = true;
+  }
+
+  void unmap() {
+    if (map != nullptr) munmap(const_cast<uint8_t*>(map), map_len);
+    map = nullptr;
+  }
+
+  void read_gz() {
+    if (!b.reserve(size + kBlock, size)) return fail("out of memory");
+    const int n = gzread(gz, b.data + size, kBlock);
+    int code = Z_OK;
+    const char* msg = n > 0 ? nullptr : gzerror(gz, &code);
+    if (n < 0) return fail(std::string("gzread failed: ") + msg);
+    if (n == 0) {  // a stream cut short ends gzread as the file's end does
+      if (code == Z_BUF_ERROR) return fail("unexpected end of file");
       eof = true;
-      buf.resize(old);
-      return false;
     }
-    buf.resize(old + static_cast<size_t>(n));
-    if (n == 0) eof = true;
-    return buf.size() > pos;
+    size += static_cast<size_t>(n);
+    if (!gzdirect(gz)) streamed += static_cast<size_t>(n);
+  }
+
+  // gzread reads on from the member at `off`, its first `skip` decoded
+  // bytes (handed out already) skipped.
+  void to_gzread(size_t off, uint64_t skip) {
+    b.trim(size);  // the pages a refused stretch wrote
+    unmap();
+    in_member = false;
+    if (lseek(fd, static_cast<off_t>(off), SEEK_SET) < 0) return fail("lseek failed");
+    gz = gzdopen(fd, "rb");
+    if (gz == nullptr) return fail("gzdopen failed");
+    fd = -1;  // gzclose closes it
+    gzbuffer(gz, kBlock);
+    if (skip > 0 && gzseek(gz, static_cast<z_off_t>(skip), SEEK_SET) < 0)
+      return fail("gzseek failed");
+  }
+
+  // The next stretch of the member in progress, or the next member.
+  // gzread's rule: another member begins only at the gzip magic, and other
+  // bytes after one are ignored.
+  void inflate_more() {
+    const size_t rest = map_len - member;
+    const uint8_t* m = map + member;
+    size_t room = std::min(rest < SIZE_MAX / kMostRatio ? rest * kMostRatio : SIZE_MAX, cap);
+    if (!in_member) {
+      if (rest < 2 || m[0] != 0x1f || m[1] != 0x8b) {
+        eof = true;
+        return;
+      }
+      size_t bsize;  // a BGZF block's output is known from its ISIZE
+      ntpu_inflate::gzip_header(m, rest, &bsize);
+      if (bsize >= 18 && bsize <= rest)
+        room = std::min<size_t>(room, ntpu_inflate::detail::le32(m + bsize - 4));
+      if (!inf.begin(m, rest)) return to_gzread(member, 0);
+      in_member = true;
+    }
+    if (!b.reserve(size + room, size)) return to_gzread(member, inf.total());
+    size_t got;
+    const ntpu_inflate::Status st = inf.next(b.data + size, room, size, &got);
+    if (st == ntpu_inflate::kOk || st == ntpu_inflate::kMore) {
+      size += got;
+      whole += got;
+    }
+    if (st == ntpu_inflate::kOk) {
+      member += inf.in_used();
+      in_member = false;
+    } else if (st != ntpu_inflate::kMore) {
+      to_gzread(member, inf.total());
+    }
+  }
+
+  bool fill() {
+    if (eof) return pos < size;
+    // compact up to the record in progress, never past it, nor into the
+    // window of a member in progress
+    const size_t drop = in_member ? std::min(mark, size > kWindow ? size - kWindow : 0) : mark;
+    if (drop > 0) {
+      memmove(b.data, b.data + drop, size - drop);
+      size -= drop;
+      pos -= drop;
+      mark -= drop;
+    }
+    const size_t before = size;
+    while (!eof && size == before) {  // an empty member gives nothing: go on
+      if (gz != nullptr)
+        read_gz();
+      else
+        inflate_more();
+    }
+    b.high = std::max(b.high, size);
+    return size > pos;
   }
 
   // Return pointer/len of the next full line (without newline); nullptr if
   // no complete line is buffered and the file is exhausted.
   const uint8_t* line(size_t* len) {
     for (;;) {
-      const uint8_t* base = buf.data() + pos;
-      size_t avail = buf.size() - pos;
-      const void* nl = memchr(base, '\n', avail);
+      const uint8_t* base = b.data + pos;
+      size_t avail = size - pos;
+      const void* nl = avail > 0 ? memchr(base, '\n', avail) : nullptr;
       if (nl != nullptr) {
         size_t l = static_cast<size_t>(static_cast<const uint8_t*>(nl) - base);
         *len = (l > 0 && base[l - 1] == '\r') ? l - 1 : l;
@@ -79,7 +239,7 @@ struct Reader {
         return base;
       }
       if (!fill()) {
-        if (buf.size() == pos) return nullptr;
+        if (size == pos) return nullptr;
       }
     }
   }
@@ -94,8 +254,8 @@ struct Reader {
   // Peek the first non-empty byte.
   int peek() {
     for (;;) {
-      while (pos < buf.size()) {
-        uint8_t c = buf[pos];
+      while (pos < size) {
+        uint8_t c = b.data[pos];
         if (c == '\n' || c == '\r') {
           ++pos;
           continue;
@@ -103,7 +263,7 @@ struct Reader {
         return c;
       }
       if (eof) return -1;
-      if (!fill() && pos >= buf.size()) return -1;
+      if (!fill() && pos >= size) return -1;
     }
   }
 };
@@ -112,21 +272,50 @@ struct Reader {
 
 extern "C" {
 
-void* ntpu_fastx_open(const char* path) {
-  gzFile gz = gzopen(path, "rb");
-  if (gz == nullptr) return nullptr;
-  gzbuffer(gz, kBlock);
+// Open `path`; `cap` is the most bytes of a gzip member decoded in one
+// stretch (0: gzread reads every member).
+void* ntpu_fastx_open(const char* path, long cap) {
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return nullptr;
   auto* r = new Reader();
-  r->gz = gz;
+  r->cap = cap > 0 ? static_cast<size_t>(cap) : 0;
+#ifndef NTPU_READER_NO_SPARE
+  {
+    std::lock_guard<std::mutex> lock(g_spare_mu);
+    std::swap(r->b, g_spare);
+  }
+#endif
+  struct stat st;
+  uint8_t magic[2];
+  if (r->cap > 0 && fstat(fd, &st) == 0 && S_ISREG(st.st_mode) && st.st_size >= 2 &&
+      pread(fd, magic, 2, 0) == 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
+    void* m = mmap(nullptr, static_cast<size_t>(st.st_size), PROT_READ, MAP_PRIVATE, fd, 0);
+    if (m != MAP_FAILED) {
+      madvise(m, static_cast<size_t>(st.st_size), MADV_SEQUENTIAL);
+      r->fd = fd;
+      r->map = static_cast<const uint8_t*>(m);
+      r->map_len = static_cast<size_t>(st.st_size);
+      return r;
+    }
+  }
+  r->gz = gzdopen(fd, "rb");
+  if (r->gz == nullptr) {
+    close(fd);
+    delete r;
+    return nullptr;
+  }
+  gzbuffer(r->gz, kBlock);
   return r;
 }
 
-void ntpu_fastx_close(void* h) {
+void ntpu_fastx_close(void* h) { delete static_cast<Reader*>(h); }
+
+// The decoded bytes so far by inflater: out[0] inflate.h's, out[1]
+// gzread's from gzip members (a file gzread copies counts in neither).
+void ntpu_fastx_inflated(void* h, unsigned long long* out) {
   auto* r = static_cast<Reader*>(h);
-  if (r != nullptr) {
-    if (r->gz != nullptr) gzclose(r->gz);
-    delete r;
-  }
+  out[0] = r->whole;
+  out[1] = r->streamed;
 }
 
 // Read up to max_rec records.  Sequence bytes are concatenated into
