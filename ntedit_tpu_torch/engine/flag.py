@@ -20,6 +20,12 @@ one pass over the contig on the card (contig_gates_and_masks), or from
 gates the caller holds (polish_candidate_masks).
 
 Every contig upload goes through ``_upload`` and counts in ``uploads``.
+
+The SNV passes record two spans (utils/profiling.py): ``engine.snv_pass``,
+the host's side of the device pass (the upload, the candidate words, the
+compaction, whose ``torch.nonzero`` waits for the words, and the site-row
+kernel, enqueued), and ``engine.download``, the wait until the candidates
+and rows are on the host.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+from ntedit_tpu_torch.utils import profiling
 
 # heads per streamed chunk (a multiple of the kernel's 8192-head tile)
 DEFAULT_CHUNK = 1 << 22
@@ -305,8 +312,10 @@ def snv_candidate_positions(
     if len(seq) < df.k:
         return np.zeros(0, dtype=np.int64)
     with _on_stream(df, stream):
-        _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
-        return cand.cpu().numpy()
+        with profiling.span("engine.snv_pass"):
+            _dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
+        with profiling.span("engine.download"):
+            return cand.cpu().numpy()
 
 
 def polish_candidate_masks(
@@ -381,6 +390,8 @@ def snv_site_data(
     if n <= 0:
         return np.zeros(0, dtype=np.int64), np.zeros((0, 6), dtype=np.uint8)
     with _on_stream(df, stream):
-        dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
-        rows = snv_kernel.snv_site_rows(dev_seq, n, cand, df, jump)
-        return cand.cpu().numpy(), rows.cpu().numpy()
+        with profiling.span("engine.snv_pass"):
+            dev_seq, cand, _staged_buf = _snv_candidates(seq, df, chunk, bins)
+            rows = snv_kernel.snv_site_rows(dev_seq, n, cand, df, jump)
+        with profiling.span("engine.download"):
+            return cand.cpu().numpy(), rows.cpu().numpy()

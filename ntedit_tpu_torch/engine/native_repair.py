@@ -1,13 +1,16 @@
-"""ctypes binding of the native sparse-repair engine (native/repair.cpp).
+"""ctypes binding of the native sparse-repair engine (csrc/repair.cpp).
 
 The engine consumes the device's gate hints and performs the exact
 sequential scan-and-repair of the reference at native speed; its output is
 rebuilt into a ``ContigResult`` (contig buffer with substitutions/masks
 applied, RopeCells node stream for indels, SubRec list) for the writers.
 
-The binding builds ``native/repair.cpp`` with g++ into the port's own
-build directory (utils/build.py), with the flags of native/Makefile, and
-raises when the build or the load fails.
+The binding builds the port's copy of ``native/repair.cpp``,
+``csrc/repair.cpp``, with g++ into the port's own build directory
+(utils/build.py), with the flags of native/Makefile, and raises when the
+build or the load fails.  The copy builds its tables once (the original
+rebuilds them on every call until one has finished, which races), so
+calls may start from many threads at once, with any k.
 """
 
 from __future__ import annotations
@@ -25,10 +28,8 @@ from ntedit_tpu_torch.engine.records import ContigResult, RopeCells, SubRec
 from ntedit_tpu_torch.utils import profiling
 from ntedit_tpu_torch.utils.build import build_library, host_cpu
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native", "repair.cpp",
-)
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "csrc", "repair.cpp")
 
 _lib = None
 
@@ -429,6 +430,7 @@ def polish_contig_segmented(
     gap, _ = _gap_margin(cfg)
     idx_bounds, margin = _bucket_bounds(gates, cfg, n_buckets=4 * threads)
     if len(idx_bounds) == 1 or threads <= 1:
+        profiling.count("engine.segments", 1)
         return _whole_contig(lib, header, seq_bytes, gates, bf_struct, rep_struct, params,
                              gate_cand, site_rows)
 
@@ -441,6 +443,7 @@ def polish_contig_segmented(
         jobs.append((lo, hi, gates[i0:i1],
                      gate_cand[i0:i1] if gate_cand is not None else None,
                      site_rows[i0:i1] if site_rows is not None else None))
+    profiling.count("engine.segments", len(jobs))
     with ThreadPoolExecutor(max_workers=min(threads, len(jobs))) as ex:
         results = list(ex.map(lambda j: runner(*j), jobs))
     return _finish_segments(

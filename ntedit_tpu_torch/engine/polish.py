@@ -46,10 +46,14 @@ The rows and the masks change no output byte, only where the probes run.
 Spans (utils/profiling.py): ``engine.load`` (the filter's upload and the
 Oracle), ``engine.contig`` (a contig of ``polish``, with its ordinal in the
 input), ``engine.gates`` (the device's gates or candidates of a contig, or
-the wait for the next chunk of the stream), ``engine.repair`` (a native
-repair call, in the thread that runs it) and ``engine.fallback``; counters
-``engine.bases``, ``engine.records`` and ``engine.gates`` (the gates handed
-to the repair).
+the wait for the next chunk of the stream; in SNV mode with the children
+``engine.snv_pass`` and ``engine.download``, engine/flag.py),
+``engine.repair`` (a native repair call, in the thread that runs it) and
+``engine.fallback``; counters ``engine.bases``, ``engine.records``,
+``engine.gates`` (the gates handed to the repair), ``engine.snv_candidates``
+(the device's SNV candidates, once a contig), ``engine.site_rows`` (the
+site rows handed to the repair) and ``engine.segments`` (the native calls
+of a contig's segmented repair).
 """
 
 from __future__ import annotations
@@ -177,6 +181,7 @@ class Polisher:
                 got = flag.snv_candidate_positions(seq, self.df, chunk=self.chunk,
                                                    stream=stream, bins=bins)
         self._cand_bins.put(bins)  # the candidates are on the host: the bins are free
+        profiling.count("engine.snv_candidates", len(got[0] if rows else got))
         return got
 
     def _snv_contig(self, header: str, seq: np.ndarray, stream) -> ContigResult:
@@ -189,6 +194,7 @@ class Polisher:
         if self._snv_fast_eligible():
             if self.site_rows:
                 cand, rows = self._snv_candidates(seq, stream, rows=True)
+                profiling.count("engine.site_rows", len(rows))
             else:
                 cand = self._snv_candidates(seq, stream)
             if self.cfg.threads > 1:

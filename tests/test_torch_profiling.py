@@ -5,7 +5,10 @@ and counters merged in; the command line wraps each subcommand in it.  The
 recorder: off, a span or a count records nothing and opens no profiler
 range; on, spans nest in a thread, keep a worker thread's id, counters
 add, and the spans land on a profiler's timeline within the clock's stated
-error; a tiny ``polish --reads`` records every span its path reaches."""
+error; a tiny ``polish --reads`` records every span its path reaches; an
+SNV run records its device pass's two spans inside ``engine.gates`` and
+counts its candidates, site rows and repair segments, and a polish run
+keeps its names."""
 
 import json
 import os
@@ -332,3 +335,76 @@ def test_polish_reads_trace_holds_the_build(tiny_reads, monkeypatch, tmp_path):
         names = {e["name"][len("ntedit."):] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "ntedit" and e["ph"] == "X"}
     assert names == POLISH_READS_SPANS
+
+
+@pytest.fixture(scope="module")
+def snv_job():
+    """A 20 kbp reference with an N run, a sample of it with 40 SNVs, and
+    a blocked filter of the sample's k-mers: (filter, reference)."""
+    from ntedit_tpu_torch.core import bloom
+    from ntedit_tpu_torch.utils import simulate
+
+    ref = simulate.random_genome(20000, seed=11)
+    sample = ref.copy()
+    rng = np.random.default_rng(12)
+    for p in rng.choice(len(ref), 40, replace=False):
+        sample[p] = ord("A") if ref[p] != ord("A") else ord("T")
+    ref[9000:9200] = ord("N")
+    bf = bloom.BlockedKmerBloomFilter.zeros(1 << 14, 3, 25)
+    bf.insert_seq(sample)
+    return bf, ref
+
+
+SNV_COUNTERS = {"engine.snv_candidates", "engine.site_rows", "engine.segments"}
+
+
+@pytest.mark.parametrize("rows", [True, False])
+def test_snv_run_records_its_device_pass_and_counts(snv_job, rows):
+    """An SNV run at -t 8 under ``recording()``: ``engine.snv_pass`` and
+    ``engine.download`` inside ``engine.gates``, in that order;
+    ``engine.snv_candidates`` the candidates ``flag.snv_candidate_positions``
+    returns, ``engine.site_rows`` the same with rows on and absent with them
+    off, ``engine.segments`` the native calls of the segmented repair, each
+    an ``engine.repair`` span."""
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+
+    bf, ref = snv_job
+    pol = Polisher(bf, None, EngineConfig(k=25, hash_num=3, snv=True, threads=8),
+                   chunk=1 << 15, device="cpu", site_rows=rows)
+    with profiling.recording() as rec:
+        (res,) = pol.polish(iter([("ref", ref)]))
+    cand = flag.snv_candidate_positions(ref, pol.df, chunk=1 << 15)
+    assert len(cand) > 0 and res.subs
+    by_name = {}
+    for s in rec.spans:
+        by_name.setdefault(s.name, []).append(s)
+    (gates,), (snv_pass,), (download,) = (by_name[n] for n in (
+        "engine.gates", "engine.snv_pass", "engine.download"))
+    assert snv_pass.parent == download.parent == "engine.gates"
+    assert gates.start_ns <= snv_pass.start_ns <= snv_pass.end_ns <= download.start_ns
+    assert download.end_ns <= gates.end_ns
+    counters = rec.counters
+    assert counters["engine.snv_candidates"] == len(cand)
+    assert counters.get("engine.site_rows") == (len(cand) if rows else None)
+    assert counters["engine.segments"] == len(by_name["engine.repair"]) >= 2
+    assert counters["engine.gates"] == len(cand) and counters["engine.bases"] == len(ref)
+
+
+def test_polish_run_keeps_its_span_and_counter_names(snv_job):
+    """A polish-mode run records the names it recorded before the SNV
+    pass's spans and counters came, and none of those."""
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+
+    bf, ref = snv_job
+    with profiling.recording() as rec:
+        pol = Polisher(bf, None, EngineConfig(k=25, hash_num=3, threads=4), chunk=1 << 15,
+                       device="cpu")
+        (res,) = pol.polish(iter([("ref", ref)]))
+    assert res.subs
+    assert {s.name for s in rec.spans} == {"engine.load", "engine.contig", "engine.gates",
+                                           "engine.repair"}
+    assert set(rec.counters) == {"engine.bases", "engine.records", "engine.gates"}
+    assert not SNV_COUNTERS & set(rec.counters)
