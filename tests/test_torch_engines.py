@@ -14,7 +14,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from ntedit_tpu.core import bloom as jbloom
 from ntedit_tpu.core import nthash_ref as jref
@@ -33,19 +32,6 @@ from ntedit_tpu_torch.io import writers as twriters
 
 K = 25
 CHUNK = 1 << 15
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch on one thread for the port's plain device passes: these tests
-    run beside other test processes, where the passes' many small parallel
-    ops would wait on threads the other processes hold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def render(writers, result, snv=False):

@@ -21,7 +21,6 @@ import zlib
 
 import numpy as np
 import pytest
-import torch
 
 from ntedit_tpu_torch.core import bfbuild
 from ntedit_tpu_torch.io import fastx, native
@@ -459,19 +458,6 @@ def test_reader_reads_on_when_no_buffer_is_had(tmp_path):
 # the filter build's pieces and its one read of the reads
 # ---------------------------------------------------------------------------
 
-@pytest.fixture
-def one_thread():
-    """torch on one thread for the builds' plain passes: these tests run
-    beside other test processes, where each pass's many small parallel ops
-    would wait on threads the other processes hold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 def old_pieces(paths, k, batch):
     """The per-record joining the build did before the batch reader (its
     records from the plain reader)."""
@@ -534,7 +520,7 @@ def opens_of(paths):
 
 
 @pytest.mark.parametrize("counts", [False, True])
-def test_one_read_of_the_reads(read_files, counts, one_thread):
+def test_one_read_of_the_reads(read_files, counts):
     """The histogram, count and insert passes of one build iterate one
     DeviceBatches: kept, each file is opened once; with budget 0, once per
     pass.  The results are equal either way, and equal to the JAX
@@ -561,7 +547,7 @@ def test_one_read_of_the_reads(read_files, counts, one_thread):
             assert np.array_equal(filt.data, jfilt.data)
 
 
-def test_shared_batches_keep_the_pieces(read_files, one_thread):
+def test_shared_batches_keep_the_pieces(read_files):
     """One DeviceBatches for the histogram and the blocked build (the CLI's
     two stages): every pass after the first reads the kept pieces, which
     are buffers of their own; the blocked filter equals the one built
@@ -588,7 +574,7 @@ def test_shared_batches_keep_the_pieces(read_files, one_thread):
     assert sum(n for _, n in over) == sum(n for _, n in batches.kept) and over.kept is None
 
 
-def test_genome_filter_reads_its_genome_once(read_files, one_thread):
+def test_genome_filter_reads_its_genome_once(read_files):
     from ntedit_tpu.core import bfbuild as jb
 
     before = opens_of(read_files)

@@ -53,19 +53,6 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 IUPAC = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch on one thread for the port's plain device passes: these tests
-    run beside other test processes, where the passes' many small parallel
-    ops would wait on threads the other processes hold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 def workload(length, seed):
     """(truth, draft): substitutions and short indels, IUPAC bytes, an N
     run and a lowercase stretch."""

@@ -294,13 +294,8 @@ def polish_reads(d, monkeypatch) -> None:
     from ntedit_tpu_torch import cli
 
     monkeypatch.chdir(d)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # beside other test processes, see test_torch_native_io.py
-    try:
-        cli.main(["polish", "--draft", "draft.fa", "--reads", "reads", "-k", "25", "-t", "2",
-                  "--device", "cpu", "--force"])
-    finally:
-        torch.set_num_threads(threads)
+    cli.main(["polish", "--draft", "draft.fa", "--reads", "reads", "-k", "25", "-t", "2",
+              "--device", "cpu", "--force"])
 
 
 def test_polish_reads_records_every_span_of_its_path(tiny_reads, monkeypatch):

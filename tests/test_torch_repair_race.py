@@ -149,26 +149,19 @@ def test_two_k_in_one_process_from_interleaved_threads():
     and the runs made edits.  (Where calls of one k could overwrite the
     tables that calls of the other are reading, 6-22 of the 96 outputs
     differed.)"""
-    import torch
+    by_k = []
+    for k, seed in ((25, 40), (55, 50)):
+        pol, contigs = _polisher(k, seed)
+        by_k.append([(pol, h, s, _render(pol.polish_contig(h, s))) for h, s in contigs])
+    jobs = [job for pair in zip(*by_k) for job in pair]  # k 25 and k 55 in turn
+    assert all(want[1].count("\n") > 5 for *_, want in jobs)  # edits to compare
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # beside other test processes, see test_torch_engines.py
-    try:
-        by_k = []
-        for k, seed in ((25, 40), (55, 50)):
-            pol, contigs = _polisher(k, seed)
-            by_k.append([(pol, h, s, _render(pol.polish_contig(h, s))) for h, s in contigs])
-        jobs = [job for pair in zip(*by_k) for job in pair]  # k 25 and k 55 in turn
-        assert all(want[1].count("\n") > 5 for *_, want in jobs)  # edits to compare
+    def work(i):
+        order = jobs[i % len(jobs):] + jobs[: i % len(jobs)]
+        return [(_render(pol.polish_contig(h, s)), want) for pol, h, s, want in order * 4]
 
-        def work(i):
-            order = jobs[i % len(jobs):] + jobs[: i % len(jobs)]
-            return [(_render(pol.polish_contig(h, s)), want) for pol, h, s, want in order * 4]
-
-        with ThreadPoolExecutor(max_workers=6) as ex:
-            got = [pair for part in ex.map(work, range(6), timeout=600) for pair in part]
-    finally:
-        torch.set_num_threads(threads)
+    with ThreadPoolExecutor(max_workers=6) as ex:
+        got = [pair for part in ex.map(work, range(6), timeout=600) for pair in part]
     assert len(got) == 6 * 4 * len(jobs)
     assert all(out == want for out, want in got)
 
