@@ -1,10 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (ntedit_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, as a user-sized run
-    python3 chip_smoke.py --against DIR   # the same, and the dense hashes kernel, the
-                                          # candidate kernel and the site-row kernel of
-                                          # the checkout at DIR in turns
+    python3 chip_smoke.py            # every phase, as a user-sized run; no options
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
@@ -28,9 +25,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
               the blocked filter the binned candidate pass (its front end's
               bins, as multisets per range, and its probed words) with the
               filter in 1, 16 and 256 slices; the polish site-row kernel
-              (jump 1, 3 and k) and the candidate-mask kernel, gated and
-              with four probes, on the gates of the same inputs plus those
-              heads, and gated on that list in reverse order.  Both site
+              (jump 1, 3 and k) and the candidate-mask kernel on the gates
+              of the same inputs plus those heads, the masks also on that
+              list in reverse order.  Both site
               forms also on simulate.site_lists (every gate a cluster
               start, a cluster of 300, starts at list index 0 and 255-257,
               overlapping scans, h + 2k at n, n + 1 and past the contig) at
@@ -52,19 +49,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
               run's three output files must equal, byte for byte, a
               host-only full sequential scan of the same C++ engine rendered
               by the same writers.  With the blocked filter also
-              ``Polisher(engine="native", cand_masks=True)`` through the
-              Python API, held the same way, with one gated mask launch
-              (none of the four-probe form: the wrapper counts each form's
-              launches) and one contig upload a contig; the native engine's gates and
-              masks in one pass (flag.contig_gates_and_masks) against the
-              gate pass and the mask pass, 5 rounds in turns; the site rows
-              and the masks each on and off in turns, 5 rounds (engine wall
-              and repair alone); and the two polish kernels at the path's
-              shapes (site rows on one 2^22-head chunk's gates, masks on
-              the 30 Mbp contig's gates, gated and with four probes in
-              turns) against their plain versions, their bytes bound, the
-              probe floor and a torch.take yardstick; the site rows in
-              turns with DIR's kernel, 20 rounds.
+              ``Polisher(engine="native")`` through the Python API, with
+              the candidate masks on and off, each held the same way: on,
+              one mask launch and one contig upload a contig, and every
+              contig's gates and masks from one pass equal to the gate
+              pass's, the gate stream's and the mask pass's; off, no mask
+              launch.  Then the two polish kernels at the
+              path's shapes (site rows on one 2^22-head chunk's gates, masks
+              on the 30 Mbp contig's gates, the native engine's gates and
+              masks in one pass, flag.contig_gates_and_masks, held to the
+              gate pass and the mask pass) against their plain versions,
+              their bytes bound, the probe floor and a torch.take yardstick.
 4. counting - the same check with a count-min filter and -p 2 -q 254, in
               polish mode and with -s 1: the SNV path of the configurations
               the candidate kernel does not serve (the gate kernel with snv
@@ -72,21 +67,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
               Neither polish row nor mask kernel may run there.
 5. snv      - ``engine -s 1 -t 8`` on a 50 Mbp reference with a 256 MiB
               blocked filter that holds a copy of it with substitutions
-              (about 1 per kbp): with the device's site rows and without,
-              two runs each in turns, every run byte-identical to the
-              host-only full SNV scan; its stages one at a time; and one
-              run with a plain filter on a 5 Mbp contig.  Then the SNV site
-              kernel alone at the shape that path gives it, one launch on a
-              whole contig's candidates (the 30 Mbp contig, blocked; the 5
-              Mbp contig, plain): against its plain version, its bytes
-              bound, the probe floor and a torch.take yardstick, in turns
-              with DIR's kernel, 20 rounds.  And the
-              candidate pass at snv_blocked's shape (utils/snv_sweep.py):
-              every contig's by the path (the binned pass on its dense
-              groups), by the binned pass alone and by the candidate kernel
-              a chunk at a time (with ``--against DIR``, DIR's too) in
-              turns; the binned pass's two kernels on the 30 Mbp contig's
-              first group against their plain versions, bounds and floors.
+              (about 1 per kbp): one run with the device's site rows and one
+              without, each byte-identical to the host-only full SNV scan;
+              and one run with a plain filter on a 5 Mbp contig.  Then the
+              SNV site kernel alone at the shape that path gives it, one
+              launch on a whole contig's candidates (the 30 Mbp contig,
+              blocked; the 5 Mbp contig, plain): against its plain version,
+              its bytes bound, the probe floor and a torch.take yardstick.
+              And the candidate pass at snv_blocked's shape: every contig's
+              by the path (the binned pass on its dense groups) and by the
+              candidate kernel a chunk at a time, the words held equal; the
+              binned pass's two kernels on the 30 Mbp contig's first group
+              against their plain versions, bounds and floors.
 6. filter_build - the filter build on the card from 30x of 150 bp reads
               of a seeded 4.7 Mbp genome (940,000 reads, 1% substitutions,
               a few N bytes, two gzip FASTQ files under one prefix):
@@ -94,7 +86,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
               kernels into a blocked filter, then the engine), its .hist
               held to the histogram of the plain hashes, its filter to a
               whole build by the plain versions on the card, its outputs to
-              the host-only full scan, and its stages one at a time; the
+              the host-only full scan; the
               reads read once by the batch reader (each file opened once,
               the pieces kept on the card: ``reads`` with ``read_s``, the
               kept bytes and the passes), and a build with budget 0 (each
@@ -114,19 +106,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
               probes of the same table with the same loads in flight.  The
               same for the SNV candidate kernel (blocked and plain).  The
               filter-build kernels on phase 6's reads, in its 2^24-byte
-              batches, at the tables polish --reads sizes for them
-              (utils/build_sweep.py): the hashes kernel on one batch (the
-              call, and its device work alone) and the histogram's pass; the
+              batches, at the tables polish --reads sized for them
+              (build_numbers): the hashes kernel on one batch (the call,
+              and its device work alone) and the histogram's pass; the
               count's partition, apply and both on one batch and the whole
               count pass; the solid bits, the insert on one batch and the
               whole insert pass; each with its plain version's ms, its bytes
               bound and its floor (the random-atomic floor in one slice and
               in the whole table; the probe floor on the solid bits and on
-              the counters), the slice size and the scratch bytes.  With
-              ``--against DIR``, DIR's candidate kernel at the chunk shape
-              and its dense hashes kernel (alone, with its compaction, and
-              its histogram pass) in turns on the same inputs (DIR's
-              site-row kernel: phases 3 and 5).
+              the counters), the slice size and the scratch bytes.
 8. engines  - (run after phase 2, before phase 3; its traced run is then
               the process's first profiler session) the engines beside
               the native repair, with a 256 MiB
@@ -171,9 +159,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
               ``engine -t 4`` as two processes sharing the card (records
               over gloo), the merged files byte-identical to phase 3's
               host-only scan; each rank's contigs, bases and wall.
-Then a ``{"kernels": [...]}`` line and, last, the device line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, it exits nonzero and prints no result.
+Then a ``{"kernels": [...]}`` line (14 kernels: launches on the path,
+equality with the plain version, ms alone against the bytes bound and the
+floor) and, last, the device line ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+nonzero and prints no result.  Every kernel's ms is the median of REPS
+launches, CUDA events around each, the L2 flushed before each.
 """
 
 from __future__ import annotations
@@ -192,6 +183,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+REPS = 20  # timed launches of a kernel alone; its ms is their median
 GENOME = 50_000_000  # bases of the main-path draft and of the timed filters
 CBF_LENGTH = 4_700_000  # bases of the counting-filter contig
 
@@ -301,9 +293,7 @@ _FORMS = {"gate_words_kernelILi0E": "plain", "gate_words_kernelILi1E": "blocked"
           "site_rows_kernelILi0EE": "site_plain", "site_rows_kernelILi1EE": "site_blocked",
           "polish_rows_kernelILi0EE": "polish_site_plain",
           "polish_rows_kernelILi1EE": "polish_site_blocked",
-          "cand_masks_kernelILi0ELb0E": "masks_plain", "cand_masks_kernelILi1ELb0E": "masks_blocked",
-          "cand_masks_kernelILi0ELb1E": "masks_gated_plain",
-          "cand_masks_kernelILi1ELb1E": "masks_gated_blocked",
+          "cand_masks_kernelILi0EE": "masks_plain", "cand_masks_kernelILi1EE": "masks_blocked",
           "kmer_valid_count_kernelILb0E": "kmer_valid_count",
           "kmer_valid_count_kernelILb1E": "kmer_valid_count_sampled",
           "kmer_valid_hashes_kernel": "kmer_valid_hashes",
@@ -393,8 +383,6 @@ def _filters_for(truth: np.ndarray, k: int, device):
 def check_kernel(seq_dev, n, df, snv, p) -> int:
     """Kernel words vs plain words on one input; returns the number of
     differing words (0 when bit-equal)."""
-    import torch
-
     from ntedit_tpu_torch.ops import gate_kernel
 
     got = gate_kernel.gate_words(seq_dev, n, df, snv, p)
@@ -508,9 +496,8 @@ def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=())
     """The polish site-row and candidate-mask kernels vs their plain
     versions on one input, on the contig's gates (cluster starts, later
     gates and IUPAC-forced ones) plus the heads of ``site_heads``, the rows
-    also on the head lists ``more``, the masks in both forms (gated and
-    four probes), the gated form also on the list in reverse order: (row
-    cases, differing rows, mask cases, differing masks)."""
+    also on the head lists ``more``, the masks also on the list in reverse
+    order: (row cases, differing rows, mask cases, differing masks)."""
     from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
 
     gates = site_heads(gate_kernel.gate_words_plain(seq_dev, n, df), draft, n, df.k)
@@ -521,14 +508,11 @@ def check_polish_kernels(seq_dev, draft: np.ndarray, n: int, df, jumps, more=())
             got = snv_kernel.polish_site_rows(seq_dev, n, heads, df, jump)
             want = snv_kernel.polish_site_rows_plain(seq_dev, n, heads, df, jump)
             rows += int((got != want).any(1).sum())
-    masks = cases = 0
-    for heads, forms in ((gates, (True, False)), (gates.flip(0), (True,))):
-        for gated in forms:
-            got = snv_kernel.polish_cand_masks(seq_dev, n, heads, df, gated=gated)
-            want = snv_kernel.polish_cand_masks_plain(seq_dev, n, heads, df, gated)
-            masks += int((got != want).sum())
-            cases += 1
-    return len(jumps) * len(lists), rows, cases, masks
+    masks = 0
+    for heads in (gates, gates.flip(0)):
+        got = snv_kernel.polish_cand_masks(seq_dev, n, heads, df)
+        masks += int((got != snv_kernel.polish_cand_masks_plain(seq_dev, n, heads, df, True)).sum())
+    return len(jumps) * len(lists), rows, 2, masks
 
 
 BUILD_SLICE_BITS = 13  # slices of 8192 counters: the kernel phase's tables split 1, 3 and 7 ways
@@ -843,13 +827,16 @@ def run_and_check(tag: str, work: str, host_bf, draft_path: str, truths, cfg,
 
 
 def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
-               threads: int) -> dict:
-    """``Polisher(engine="native", cand_masks=True)`` through the Python API
-    (the command line has no engine switch) over the draft, rendered by the
-    command line's writers and held to the host-only full scan at
-    ``ref_prefix``.  The launch and contig-upload counts are set to 0 just
-    before the run and read just after: one gated mask launch and one upload
-    a contig (flag.contig_gates_and_masks)."""
+               threads: int, cand_masks: bool) -> dict:
+    """``Polisher(engine="native", cand_masks=cand_masks)`` through the
+    Python API (the command line has no engine switch) over the draft,
+    rendered by the command line's writers and held to the host-only full
+    scan at ``ref_prefix``.  The launch and contig-upload counts are set to
+    0 just before the run and read just after.  Masks on: one mask launch
+    and one upload a contig (flag.contig_gates_and_masks), whose gates and
+    masks then equal, for every contig at the engine's chunk, the gate
+    pass's, the gate stream's and the mask pass's from those gates.  Masks
+    off: the gate pass and the segmented repair, and no mask launch."""
     from ntedit_tpu_torch.engine import flag
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
@@ -860,7 +847,7 @@ def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
     flag.uploads = 0
     t0 = time.perf_counter()
     cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
-    pol = Polisher(host_bf, None, cfg, device="cuda", engine="native", cand_masks=True)
+    pol = Polisher(host_bf, None, cfg, device="cuda", engine="native", cand_masks=cand_masks)
     records = contigs = 0
     with open(prefix + "_edited.fa", "w") as dfout, \
          open(prefix + "_changes.tsv", "w") as rfout, \
@@ -875,196 +862,41 @@ def run_native(tag: str, work: str, host_bf, draft_path: str, ref_prefix: str,
     launches = kernel_launches()
     uploads = flag.uploads
     same = _same_outputs(prefix, ref_prefix)
-    out = {"engine": "native", "cand_masks": True, "wall_s": wall, "records": records,
+    out = {"engine": "native", "cand_masks": cand_masks, "wall_s": wall, "records": records,
            "contigs": contigs, "contig_uploads": uploads,
            "launches": launches["gate_words"], "mask_launches": launches["polish_cand_masks"],
-           "mask_launches_by_form": {form: launches[f"polish_cand_masks.{form}"]
-                                     for form in ("gated", "four_probe")},
            "site_row_launches": launches["polish_site_rows"], "byte_identical": same}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
-    if launches["gate_words"] <= 0 or out["mask_launches_by_form"] != {
-            "gated": contigs, "four_probe": 0} or uploads != contigs:
-        raise AssertionError(f"{tag}: not one gated mask launch (and no four-probe one) and "
-                             f"one upload a contig: {out}")
+    if launches["gate_words"] <= 0:
+        raise AssertionError(f"{tag}: the gate kernel was never launched")
+    if not cand_masks:
+        if out["mask_launches"]:
+            raise AssertionError(f"{tag}: the mask kernel ran with the masks off: {out}")
+        return out
+    if out["mask_launches"] != contigs or uploads != contigs:
+        raise AssertionError(f"{tag}: not one mask launch and one upload a contig: {out}")
+    for r in fastx.read_fastx(draft_path):
+        if len(r.seq) < cfg.min_contig_len:
+            continue
+        gates, masks = flag.contig_gates_and_masks(r.seq, pol.df, chunk=pol.chunk)
+        hints = pol.gate_positions(r.seq)
+        stream = [g for _, g, _ in flag.iter_polish_site_chunks(r.seq, pol.df, cfg.jump)]
+        if not (np.array_equal(gates, hints) and np.array_equal(gates, np.concatenate(stream))
+                and np.array_equal(masks, flag.polish_candidate_masks(r.seq, pol.df, hints))):
+            raise AssertionError(f"{tag} {r.header}: flag.contig_gates_and_masks differs from "
+                                 f"the gate pass, the gate stream or the mask pass")
     return out
-
-
-def on_off_rounds(host_bf, draft_path: str, threads: int, rounds: int = 5) -> dict:
-    """Polish mode's two switches, each on and off in turns (on, off; then
-    off, on) for ``rounds`` rounds: the site rows with the pipelined engine,
-    the candidate masks with the native engine (its gates and masks from
-    one pass, flag.contig_gates_and_masks).  Each round times the
-    engine's wall (Polisher.polish over the draft, two contigs in flight)
-    and the repair alone from the passes' precomputed results (the
-    pipelined repair fed the chunks with or without their rows; the
-    segmented repair with or without the masks of that pass).  A switch is "kept" when
-    its run is no slower in at least 4 rounds of 5 (PERF.md)."""
-    from ntedit_tpu_torch.engine import flag, native_repair
-    from ntedit_tpu_torch.engine.config import EngineConfig
-    from ntedit_tpu_torch.engine.polish import Polisher
-    from ntedit_tpu_torch.io import fastx
-
-    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
-    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
-    pols = {("rows", on): Polisher(host_bf, None, cfg, device="cuda", site_rows=on)
-            for on in (True, False)}
-    pols.update({("masks", on): Polisher(host_bf, None, cfg, device="cuda", engine="native",
-                                         cand_masks=on) for on in (True, False)})
-    df = pols["rows", True].df
-    with_rows = [list(flag.iter_polish_site_chunks(r.seq, df, cfg.jump)) for r in recs]
-    without = [[(f, g) for f, g, _ in c] for c in with_rows]
-    gates = [np.concatenate([g for _, g in c]) for c in without]
-    one_pass = [flag.contig_gates_and_masks(r.seq, df) for r in recs]
-    if not all(np.array_equal(g, h) for g, (h, _) in zip(gates, one_pass)):
-        raise AssertionError("the one-pass gates differ from the gate stream's")
-    masks = [m for _, m in one_pass]
-
-    def repair(switch, on):
-        if switch == "rows":
-            chunks = with_rows if on else without
-            return [native_repair.polish_contig_pipelined(
-                host_bf, None, cfg, r.header, r.seq, iter(c), threads=threads)
-                for r, c in zip(recs, chunks)]
-        return [native_repair.polish_contig_segmented(
-            host_bf, None, cfg, r.header, r.seq, g, threads=threads, gate_cand=m if on else None)
-            for r, g, m in zip(recs, gates, masks)]
-
-    times = {(sw, what, on): [] for sw in ("rows", "masks") for what in ("engine", "repair")
-             for on in (True, False)}
-    edited = {}
-    for i in range(rounds):
-        for switch in ("rows", "masks"):
-            for on in ((True, False) if i % 2 == 0 else (False, True)):
-                t0 = time.perf_counter()
-                results = list(pols[switch, on].polish((r.header, r.seq) for r in recs))
-                times[switch, "engine", on].append(time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                again = repair(switch, on)
-                times[switch, "repair", on].append(time.perf_counter() - t0)
-                for res in results + again:
-                    if edited.setdefault(res.header, res.edited) != res.edited:
-                        raise AssertionError(f"{switch} {on}: {res.header} differs")
-    out = {"rounds": rounds, "threads": threads}
-    for switch in ("rows", "masks"):
-        row = {}
-        for what in ("engine", "repair"):
-            on, off = times[switch, what, True], times[switch, what, False]
-            row[f"{what}_s"] = {"on": on, "off": off}
-            row[f"{what}_on_no_slower"] = sum(a <= b for a, b in zip(on, off))
-        row["keep_on"] = row["engine_on_no_slower"] >= 4
-        out[switch] = row
-    out["rows"]["valid_rows"] = int(sum(int((r[:, 0] & 1).sum()) for c in with_rows
-                                        for _, _, r in c))
-    out["masks"]["informative_masks"] = int(sum(int((m != 0xFF).sum()) for m in masks))
-    return out
-
-
-def time_split(host_bf, draft_path: str, threads: int) -> dict:
-    """The main path's stages one at a time, none overlapped: read the
-    draft, upload the filter, the gate pass of every contig (and, for
-    comparison, the gate pass with its site rows), the threaded repair from
-    those gates, and rendering the outputs.  The native engine's masks in
-    5 rounds in turns (two passes, one; then one, two): the gate pass then
-    the candidate-mask pass from the gates on the host (``gate_pass_s``,
-    ``mask_pass_s``) against flag.contig_gates_and_masks
-    (``gate_and_mask_pass_s``), over every contig; medians, each round's
-    seconds beside."""
-    import io
-
-    from ntedit_tpu_torch.engine import flag, native_repair
-    from ntedit_tpu_torch.engine.config import EngineConfig
-    from ntedit_tpu_torch.engine.polish import Polisher
-    from ntedit_tpu_torch.io import fastx, writers
-
-    out = {}
-    t0 = time.perf_counter()
-    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, threads=threads).validate()
-    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
-    out["read_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pol = Polisher(host_bf, None, cfg, device="cuda")
-    out["filter_upload_s"] = time.perf_counter() - t0
-    # one untimed pass of each over the longest contig first, so that no
-    # timed pass carries the warm-up of the ones after it
-    longest = max(recs, key=lambda r: len(r.seq))
-    flag.polish_candidate_masks(longest.seq, pol.df, pol.gate_positions(longest.seq))
-    flag.contig_gates_and_masks(longest.seq, pol.df, chunk=pol.chunk)
-    list(flag.iter_polish_site_chunks(longest.seq, pol.df, cfg.jump))
-    t0 = time.perf_counter()
-    rows = [list(flag.iter_polish_site_chunks(r.seq, pol.df, cfg.jump)) for r in recs]
-    out["gate_and_rows_pass_s"] = time.perf_counter() - t0
-    out["valid_rows"] = int(sum(int((x[:, 0] & 1).sum()) for c in rows for _, _, x in c))
-    out["exact_gates"] = int(sum(int((x[:, 0] & 32 != 0).sum()) for c in rows for _, _, x in c))
-    del rows
-    rounds = {"gate_pass_s": [], "mask_pass_s": [], "gate_and_mask_pass_s": []}
-    for i in range(5):
-        for one in ((False, True) if i % 2 == 0 else (True, False)):
-            t0 = time.perf_counter()
-            if one:
-                both = [flag.contig_gates_and_masks(r.seq, pol.df, chunk=pol.chunk) for r in recs]
-                rounds["gate_and_mask_pass_s"].append(time.perf_counter() - t0)
-                continue
-            hints = [pol.gate_positions(r.seq) for r in recs]
-            t1 = time.perf_counter()
-            masks = [flag.polish_candidate_masks(r.seq, pol.df, h) for r, h in zip(recs, hints)]
-            rounds["gate_pass_s"].append(t1 - t0)
-            rounds["mask_pass_s"].append(time.perf_counter() - t1)
-    if not all(np.array_equal(h, g) and np.array_equal(m, x)
-               for h, m, (g, x) in zip(hints, masks, both)):
-        raise AssertionError("flag.contig_gates_and_masks differs from the two passes")
-    out.update({key: float(np.median(v)) for key, v in rounds.items()})
-    out["mask_rounds"] = rounds
-    out["one_pass_faster_rounds"] = sum(a < b + c for a, b, c in zip(
-        rounds["gate_and_mask_pass_s"], rounds["gate_pass_s"], rounds["mask_pass_s"]))
-    out["gates"] = int(sum(len(h) for h in hints))
-    out["informative_masks"] = int(sum(int((m != 0xFF).sum()) for m in masks))
-    del masks, both
-    t0 = time.perf_counter()
-    results = [native_repair.polish_contig_pipelined(
-        host_bf, None, cfg, r.header, r.seq, [(len(r.seq) - cfg.k + 1, h)], threads=threads)
-        for r, h in zip(recs, hints)]
-    out["repair_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sinks = [io.StringIO() for _ in range(3)]
-    for res in results:
-        writers.write_contig(res, *sinks, {})
-    out["render_s"] = time.perf_counter() - t0
-    out.update(device_share(pol, recs))
-    return out
-
-
-def device_share(pol, recs) -> dict:
-    """Polisher.polish over the draft under torch.profiler: the device's
-    busy time (kernels and copies) against the wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        n = len(list(pol.polish((r.header, r.seq) for r in recs)))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
-        if dt > 0:
-            busy_us[ev.key] = dt
-    busy_s = sum(busy_us.values()) / 1e6
-    return {"profiled_contigs": n, "profiled_wall_s": wall, "device_busy_s": busy_s,
-            "device_idle_share": 1 - busy_s / wall if busy_us else None,
-            "device_top": sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]}
 
 
 # the mask kernel's own keys in the kernels line
 MASK_KEYS = ("probes", "probes_per_informative_gate", "informative", "loads_in_flight")
 
 
-def phase_main(work: str, against=None) -> list:
+def phase_main(work: str) -> list:
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.utils import simulate
-    from ntedit_tpu_torch.utils.other import SiteRows
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # GENOME + 5,060 bases
@@ -1086,12 +918,11 @@ def phase_main(work: str, against=None) -> list:
     rows_on = {"site_rows": dict(threads=8, site_rows=True)}
     out = [run_and_check("main_blocked", work, blk, draft_path, truths, cfg, args, rows_on)]
     out[0].update(simulate_s=sim_s, filter_build_s=build_s, filter_bytes=blk.bytes,
-                  contigs=lengths, split=time_split(blk, draft_path, 8))
-    out[0]["native"] = run_native("main_native", work, blk, draft_path,
-                                  os.path.join(work, "main_blocked_ref"), 8)
-    out[0]["on_off"] = on_off_rounds(blk, draft_path, 8)
-    other = SiteRows(against) if against else None
-    out[0]["polish_kernels"] = polish_kernel_numbers(drafts[0], blk, cfg.jump, other)
+                  contigs=lengths)
+    for on, name in ((True, "native"), (False, "native_masks_off")):
+        out[0][name] = run_native(f"main_{name}", work, blk, draft_path,
+                                  os.path.join(work, "main_blocked_ref"), 8, on)
+    out[0]["polish_kernels"] = polish_kernel_numbers(drafts[0], blk, cfg.jump)
     del blk
     t0 = time.perf_counter()
     pl = bloom.KmerBloomFilter.zeros(bloom.bf_size_bytes(n_kmers, 3, 0.001), 3, k)
@@ -1100,7 +931,7 @@ def phase_main(work: str, against=None) -> list:
     build_s = time.perf_counter() - t0
     out.append(run_and_check("main_plain", work, pl, draft_path, truths, cfg, args, rows_on))
     out[1].update(filter_build_s=build_s, filter_bytes=pl.bytes,
-                  polish_kernels=polish_kernel_numbers(drafts[0], pl, cfg.jump, other))
+                  polish_kernels=polish_kernel_numbers(drafts[0], pl, cfg.jump))
     for row in out:
         if row["site_row_launches"] or row["mask_launches"]:
             raise AssertionError(f"{row['phase']}: a polish row or mask kernel ran by default")
@@ -1176,84 +1007,21 @@ def run_snv_engine(tag: str, work: str, bf_path: str, draft_path: str, site_rows
             "site_launches": snv_kernel.snv_site_rows.launches}
 
 
-def snv_time_split(host_bf, draft_path: str, threads: int) -> dict:
-    """The SNV path's stages one at a time, none overlapped: the candidate
-    pass of every contig, the candidate and site-row pass, the threaded
-    repair from the candidates without and with the rows (each of these
-    twice, in turns), and rendering.  Then Polisher.polish over the draft,
-    two contigs in flight as the command line runs it, with the rows and
-    without, twice each in turns: the engine's share of the CLI's wall."""
-    import io
-
-    from ntedit_tpu_torch.engine import flag, native_repair
-    from ntedit_tpu_torch.engine.config import EngineConfig
-    from ntedit_tpu_torch.engine.polish import Polisher
-    from ntedit_tpu_torch.io import fastx, writers
-
-    cfg = EngineConfig(k=host_bf.k, hash_num=host_bf.hash_num, snv=True, threads=threads).validate()
-    recs = [r for r in fastx.read_fastx(draft_path) if len(r.seq) >= cfg.min_contig_len]
-    pol = Polisher(host_bf, None, cfg, device="cuda")
-    out = {}
-    flag.snv_site_data(min(recs, key=lambda r: len(r.seq)).seq, pol.df, cfg.jump)  # warm
-    # candidates, with rows, with rows, candidates: the lesser of each pair
-    passes = {"candidate_pass_s": lambda r: (flag.snv_candidate_positions(r.seq, pol.df), None),
-              "candidate_and_rows_pass_s": lambda r: flag.snv_site_data(r.seq, pol.df, cfg.jump)}
-    got = {}
-    for name in ("candidate_pass_s", "candidate_and_rows_pass_s", "candidate_and_rows_pass_s",
-                 "candidate_pass_s"):
-        t0 = time.perf_counter()
-        got[name] = [passes[name](r) for r in recs]
-        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
-    cands = [c for c, _ in got["candidate_pass_s"]]
-    data = got["candidate_and_rows_pass_s"]
-    out["candidates"] = int(sum(len(c) for c in cands))
-    out["valid_rows"] = int(sum(int((rows[:, 0] & 1).sum()) for _, rows in data))
-    if any(not np.array_equal(c, d[0]) for c, d in zip(cands, data)):
-        raise AssertionError("snv_site_data and snv_candidate_positions differ in their candidates")
-    # without rows, with, with, without: the lesser of each pair
-    all_rows = {"repair_s": [None] * len(recs), "repair_with_rows_s": [d[1] for d in data]}
-    results = {}
-    for name in ("repair_s", "repair_with_rows_s", "repair_with_rows_s", "repair_s"):
-        t0 = time.perf_counter()
-        results[name] = [native_repair.polish_contig_segmented(
-            host_bf, None, cfg, r.header, r.seq, c, threads=threads, allow_snv=True, site_rows=w)
-            for r, c, w in zip(recs, cands, all_rows[name])]
-        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    sinks = [io.StringIO() for _ in range(3)]
-    for res in results["repair_with_rows_s"]:
-        writers.write_contig(res, *sinks, {}, snv=True)
-    out["render_s"] = time.perf_counter() - t0
-    engines = {"polish_rows_s": pol,
-               "polish_no_rows_s": Polisher(host_bf, None, cfg, device="cuda", site_rows=False)}
-    for name in ("polish_rows_s", "polish_no_rows_s", "polish_no_rows_s", "polish_rows_s"):
-        t0 = time.perf_counter()
-        for _res in engines[name].polish((r.header, r.seq) for r in recs):
-            pass
-        out[name] = min(out.get(name, float("inf")), time.perf_counter() - t0)
-    del engines
-    out.update(device_share(pol, recs))
-    return out
-
-
-def phase_snv(work: str, against=None) -> list:
+def phase_snv(work: str) -> list:
     import torch
 
     from ntedit_tpu_torch.core import bloom
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.utils import simulate
-    from ntedit_tpu_torch.utils.other import SiteRows
-
-    other = SiteRows(against) if against else None
 
     def site_kernel(host_bf, seq):
         return snv_site_numbers(seq, bloom.DeviceFilter.from_host(host_bf, torch.device("cuda")),
-                                cfg.jump, flush_buffer(), other)
+                                cfg.jump, flush_buffer())
 
     k = 25
     lengths = [30_000_000, 15_000_000, 5_000_000, 5_000, 60]  # main_blocked's
     t0 = time.perf_counter()
-    refs, variants, planted = simulate.snv_genome(lengths, seed=700)  # utils/snv_sweep.py's
+    refs, variants, planted = simulate.snv_genome(lengths, seed=700)
     draft_path = os.path.join(work, "ref50.fa")
     write_fasta(draft_path, refs)
     sim_s = time.perf_counter() - t0
@@ -1292,25 +1060,17 @@ def phase_snv(work: str, against=None) -> list:
     ref_prefix = os.path.join(work, "snv_blocked_ref")
     reference_outputs(blk, draft_path, ref_prefix, cfg, threads=4)
     ref_s = time.perf_counter() - t0
-    # with rows and without, twice each, in turns that favour neither
-    order = (True, False, False, True)
+    # with rows, then without
     runs = [run_snv_engine(f"snv_{i}", work, bf_path, draft_path, rows)
-            for i, rows in enumerate(order)]
+            for i, rows in enumerate((True, False))]
     same = {"rows_vs_no_rows": _same_outputs(runs[0]["prefix"], runs[1]["prefix"]),
             "rows_vs_full_scan": _same_outputs(runs[0]["prefix"], ref_prefix),
-            "no_rows_vs_full_scan": _same_outputs(runs[1]["prefix"], ref_prefix),
-            "repeats": {str(i): all(_same_outputs(runs[i]["prefix"], ref_prefix).values())
-                        for i in range(2, len(runs))}}
-    wall = {rows: float(np.mean([r["wall_s"] for r in runs if r["site_rows"] == rows]))
-            for rows in (True, False)}
+            "no_rows_vs_full_scan": _same_outputs(runs[1]["prefix"], ref_prefix)}
     out = [checked("snv_blocked", bases, runs, ref_s, same,
-                   {"mean_wall_s": {"rows": wall[True], "no_rows": wall[False]},
-                    "faster": "rows" if wall[True] < wall[False] else "no_rows",
-                    "planted_variants": planted, "simulate_s": sim_s, "filter_build_s": build_s,
+                   {"planted_variants": planted, "simulate_s": sim_s, "filter_build_s": build_s,
                     "filter_bytes": blk.bytes, "contigs": lengths, "reference": "full_scan_4_threads",
-                    "split": snv_time_split(blk, draft_path, 8),
                     "site_kernel": site_kernel(blk, refs[0]),
-                    "binned": binned_numbers(refs, blk, flush_buffer(), against)}, binned=True)]
+                    "binned": binned_numbers(refs, blk, flush_buffer())}, binned=True)]
     del blk
     torch.cuda.empty_cache()
     # the plain layout on the 5 Mbp contig alone
@@ -1381,21 +1141,13 @@ def _launch_counted():
 
 
 def kernel_launches() -> dict:
-    """name -> launches of each counted wrapper, and "name.form" -> those of
-    each form where a wrapper counts its forms apart (the mask kernel)."""
-    out = {}
-    for fn in _launch_counted():
-        out[fn.__name__] = fn.launches
-        for form, count in getattr(fn, "form_launches", {}).items():
-            out[f"{fn.__name__}.{form}"] = count
-    return out
+    """name -> launches of each counted wrapper."""
+    return {fn.__name__: fn.launches for fn in _launch_counted()}
 
 
 def reset_launches() -> None:
     for fn in _launch_counted():
         fn.launches = 0
-        if hasattr(fn, "form_launches"):
-            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
 
 
 def reads_of(run) -> tuple:
@@ -1482,71 +1234,7 @@ def plain_build(pieces, k: int, hash_num: int, nbits: int, slots: int, layout: s
     return (None if counters is None else counters.cpu().numpy()), words
 
 
-def read_filter_split(pieces, read_s: float, draft_path: str, work: str, k: int) -> dict:
-    """The polish --reads path's stages one at a time, none overlapped, on
-    the pieces already read: the histogram (the uploads and the hashes
-    kernel, which samples once the kept hashes outgrow the budget, then
-    the unique-count), the count pass, the insert pass,
-    download and save, the engine."""
-    import torch
-
-    from ntedit_tpu_torch import cli
-    from ntedit_tpu_torch.core import bfbuild
-    from ntedit_tpu_torch.ops import build_kernel
-
-    dev = torch.device("cuda")
-    out = {"read_s": read_s}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        got = fn()
-        torch.cuda.synchronize()
-        out[name] = time.perf_counter() - t0
-        return got
-
-    kept = bfbuild.SampledHashes(1 << 26)
-
-    def hashes():
-        for seq, n in bfbuild.upload_batches(pieces, k, dev):
-            s = kept.s
-            kept.add(*build_kernel.kmer_valid_hashes(seq, n, k, s), s)
-
-    timed("histogram_kernel_s", hashes)
-    hist = timed("histogram_unique_s", lambda: kept.histogram(k))
-    del kept
-    nbits, slots, _ = bfbuild.filter_sizes(hist, 2)
-    builder = bfbuild.FilterBuilder(k, 3, nbits, slots, "blocked", dev)
-    timed("count_pass_s", lambda: [builder.count_batch(seq, n)
-                                   for seq, n in bfbuild.upload_batches(pieces, k, dev)])
-    timed("insert_pass_s", lambda: [builder.insert_batch(seq, n, 2)
-                                    for seq, n in bfbuild.upload_batches(pieces, k, dev)])
-    bf_path = os.path.join(work, "split.bf")
-    timed("download_and_save_s", lambda: builder.finish().save(bf_path))
-    timed("engine_s", lambda: cli._run_engine(bf_path, draft_path, os.path.join(work, "split"),
-                                              threads=8, device="cuda"))
-    return out
-
-
-def build_kernel_numbers(pieces: list, flush, against) -> dict:
-    """The filter-build kernels on the reads' batches (utils/build_sweep.py,
-    at the tables polish --reads sizes for them): the hashes kernel on the
-    first batch and the histogram's pass (with ``against``, the dense
-    kernel of that checkout and its compaction in turns), the count and
-    insert passes; ms (CUDA events, L2 flushed), the plain version's ms,
-    the bytes bound and a floor."""
-    import torch
-
-    from ntedit_tpu_torch.utils import build_sweep
-    from ntedit_tpu_torch.utils.other import DenseHashes
-
-    seqs = build_sweep.upload(pieces, torch.device("cuda"))
-    other = DenseHashes(against) if against and DenseHashes.offered(against) else None
-    out = {"kmer_valid_hashes": build_sweep.hashes_numbers(seqs, flush, other)}
-    out.update(build_sweep.build_numbers(seqs, flush))
-    return out
-
-
-def phase_filter_build(work: str, against=None) -> dict:
+def phase_filter_build(work: str) -> dict:
     """polish --reads (blocked, cutoff 2) and --cbf, make-genome-bf and
     snv --genome through the command line on the card, each filter held to
     the plain versions' build and each output to the host-only full scan."""
@@ -1557,7 +1245,7 @@ def phase_filter_build(work: str, against=None) -> dict:
     from ntedit_tpu_torch.ops import build_kernel as bk
     from ntedit_tpu_torch.utils import simulate
 
-    k = 25
+    k, hash_num, cutoff = 25, 3, 2  # polish --reads' k, hashes and the cutoff its filter takes
     dev = torch.device("cuda")
     out = {"phase": "filter_build"}
     t0 = time.perf_counter()
@@ -1594,25 +1282,25 @@ def phase_filter_build(work: str, against=None) -> dict:
     kmers, mult = torch.unique(torch.cat(plain_hashes), return_counts=True)
     del plain_hashes
     df = bloom.DeviceFilter.from_host(bf, dev)
-    solid = kmers[mult >= 2]
+    solid = kmers[mult >= cutoff]
     absent = int((~df.contains([solid])).sum())
     truth_can = bk.valid_hashes(*_padded(truth, k, dev))
     truth_absent = int((~df.contains([torch.unique(truth_can)])).sum())
     del kmers, mult, solid, truth_can, df
-    nbits, slots, cbf_slots = bfbuild.filter_sizes(hist, 2)
-    _, words = plain_build(pieces, k, 3, nbits, slots, "blocked", 2)
+    nbits, slots, cbf_slots = bfbuild.filter_sizes(hist, cutoff)
+    plain_counters, words = plain_build(pieces, k, hash_num, nbits, slots, "blocked", cutoff)
     same_bf = isinstance(bf, bloom.BlockedKmerBloomFilter) and np.array_equal(bf.words, words)
     # the same build with budget 0: each pass reads the reads again
     t0 = time.perf_counter()
     (again, _, _), _, reread_opens, _ = reads_of(lambda: bfbuild.build_read_filter(
-        read_files, k, cutoff=2, hist=hist, device=dev, budget=0))
+        read_files, k, cutoff=cutoff, hist=hist, device=dev, budget=0))
     torch.cuda.synchronize()
     reread = {"wall_s": time.perf_counter() - t0,
               "opens": {os.path.basename(p): reread_opens.get(p, 0) for p in read_files},
               "filter_equals_kept": np.array_equal(again.words, bf.words),
               "filter_equals_plain": np.array_equal(again.words, words)}
     del again
-    cfg = EngineConfig(k=k, hash_num=3, threads=1).validate()
+    cfg = EngineConfig(k=k, hash_num=hash_num, threads=1).validate()
     ref_prefix = os.path.join(work, "fb_ref")
     t0 = time.perf_counter()
     reference_outputs(bf, draft_path, ref_prefix, cfg)
@@ -1621,19 +1309,19 @@ def phase_filter_build(work: str, against=None) -> dict:
     out["polish_reads"] = {
         "wall_s": wall, "reads": reads, "read_pass_s": read_s, "reread": reread,
         "launches": launches, "max_memory_allocated": peak,
-        "f1": hist.f1, "f0": hist.f0, "cutoff": 2, "filter_bytes": bf.bytes,
+        "f1": hist.f1, "f0": hist.f0, "cutoff": cutoff, "filter_bytes": bf.bytes,
         "count_slots": slots, "hist_equals_plain": same_hist, "filter_equals_plain": same_bf,
         "solid_read_kmers_absent": absent, "genome_kmers_absent": truth_absent,
-        "reference_full_scan_s": ref_s, "byte_identical": same,
-        "split": read_filter_split(pieces, read_s, draft_path, work, k)}
+        "reference_full_scan_s": ref_s, "byte_identical": same}
     if not (same_hist and same_bf and all(same.values())) or absent \
             or not (reread["filter_equals_kept"] and reread["filter_equals_plain"]) \
             or set(reread["opens"].values()) != {2}:
         raise AssertionError(f"polish --reads: {out['polish_reads']}")
     del bf
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
-    out["kernel_numbers"] = build_kernel_numbers(pieces, flush, against)
-    del words, flush
+    out["kernel_numbers"] = build_numbers(list(bfbuild.upload_batches(pieces, k, dev, keep=True)),
+                                          k, hash_num, cutoff, plain_counters, nbits // 32,
+                                          flush_buffer())
+    del words, plain_counters
     torch.cuda.empty_cache()
 
     # polish --reads --cbf: the counting filter of every valid k-mer
@@ -2076,34 +1764,111 @@ def flush_buffer():
     return torch.empty(256 << 20, dtype=torch.uint8, device=torch.device("cuda"))
 
 
-def binned_numbers(refs, host_bf, flush, against) -> dict:
+def binned_numbers(refs, host_bf, flush) -> dict:
     """The SNV candidate pass at the shape snv_blocked gives it: the whole
     pass over every contig (on the card; the words) by the path, which bins
-    its dense groups, by the binned pass on every group, and by the
-    candidate kernel one chunk at a time (with ``against``, that
-    checkout's kernel too), in turns, each pass's words held to the
-    kernel's; and the binned pass's two kernels on the 30 Mbp contig's
-    first group (7 chunks) against their plain versions, their bounds and
-    floors (utils/snv_sweep.py)."""
+    its dense groups, and by the candidate kernel one chunk at a time, the
+    path's words held to the kernel's; and the binned pass's two kernels on
+    the 30 Mbp contig's first group (7 chunks) against their plain versions,
+    their bounds and floors (binned_kernel_numbers)."""
     import torch
 
     from ntedit_tpu_torch.core import bloom
-    from ntedit_tpu_torch.utils import snv_sweep
-    from ntedit_tpu_torch.utils.other import CandWords
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import snv_kernel
 
     df = bloom.DeviceFilter.from_host(host_bf, torch.device("cuda"))
-    contigs = snv_sweep.contigs_on_card(refs, df.device)
-    out = {"pass": snv_sweep.pass_numbers(contigs, df, flush, CandWords(against) if against
-                                          else None),
-           **snv_sweep.kernel_numbers(*contigs[0], df, flush)}
+    contigs = [_padded(r, df.k, df.device)[:2] for r in refs if len(r) >= df.k]
+
+    def path():
+        return [flag.snv_candidate_words(seq, n, df) for seq, n in contigs]
+
+    def kernel():  # one launch a 2^22-head chunk
+        c = flag.DEFAULT_CHUNK
+        return [torch.cat([snv_kernel.snv_cand_words(seq[s:], min(c, n - s), df)
+                           for s in range(0, n, c)]) for seq, n in contigs]
+
+    differing = sum(int((a != b).sum()) for a, b in zip(path(), kernel()))
+    if differing:
+        raise AssertionError(f"the path's candidate words differ from the kernel's: {differing}")
+    out = {"pass": {"path": time_cuda(path, REPS, flush), "kernel": time_cuda(kernel, REPS, flush)},
+           **binned_kernel_numbers(*contigs[0], df, flush)}
     if out["differing"]:
         raise AssertionError(f"a binned kernel differs from its plain version: {out}")
     return out
 
 
+def binned_kernel_numbers(seq, n: int, df, flush) -> dict:
+    """The binned pass's kernels on the first group of one contig, each
+    against its plain version (the bins as multisets, the forced and the
+    probed words, and those against snv_cand_words_plain), the bytes bound
+    of the candidate words they compute together, their design bytes and
+    a floor each: a device copy of the front end's design bytes; random
+    probes of one slice's words, 4 in flight, as many as the probe kernel
+    makes."""
+    import torch
+
+    from ntedit_tpu_torch.engine import flag
+    from ntedit_tpu_torch.ops import gate_kernel, snv_kernel
+
+    group = min(n, flag.DEFAULT_CHUNK * max(1, flag.BIN_BUDGET // (
+        3 * snv_kernel.ENTRY_BYTES * flag.DEFAULT_CHUNK)))
+    nw = -(-group // 32)
+    bins, plain = (snv_kernel.CandBins(df.modulus, group, df.device) for _ in range(2))
+    words = torch.empty(nw, dtype=torch.int32, device=df.device)
+    plain_words = torch.empty_like(words)
+    snv_kernel.snv_cand_bin(seq, group, df, bins, words)
+    snv_kernel.snv_cand_bin_plain(seq, group, df, plain, plain_words)
+    cells = bins.cells()
+    differing = int((bins.counts[:cells] != plain.counts[:cells]).sum())
+    differing += int((bins.ends[:cells] != plain.ends[:cells]).sum())
+    if not differing:
+        differing += sum(int((a != b).sum()) for a, b in zip(snv_kernel.bin_multiset(bins),
+                                                             snv_kernel.bin_multiset(plain)))
+    differing += int((words != plain_words).sum())
+    snv_kernel.snv_cand_probe(bins, df, words)
+    snv_kernel.snv_cand_probe_plain(plain, df, plain_words)
+    want = snv_kernel.snv_cand_words_plain(seq, group, df)
+    differing += int((words != plain_words).sum()) + int((words != want).sum())
+    err = int(((words.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
+    entries = bins.total()
+    sectors = int(torch.unique((bins.can[:entries] & (df.modulus - 1)) >> 3).numel())
+    bin_ms = time_cuda(lambda: snv_kernel.snv_cand_bin(seq, group, df, bins, words), REPS, flush)
+    probe_ms = time_cuda(lambda: snv_kernel.snv_cand_probe(bins, df, words), REPS, flush)
+    plain_bin_ms = time_cuda(lambda: snv_kernel.snv_cand_bin_plain(seq, group, df, plain,
+                                                                   plain_words), 1, flush)
+    plain_probe_ms = time_cuda(lambda: snv_kernel.snv_cand_probe_plain(plain, df, plain_words),
+                               1, flush)
+    del plain
+    table = df.table[: min(df.modulus, 1 << bins.slice_bits)]
+    floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, entries, -(-entries // 4), 4),
+                         REPS, flush)
+    # the function both kernels compute together, the group's candidate
+    # words, needs its ASCII once, the words and the distinct filter sectors
+    # its probes touch: one bound for the two.  The entries (written by the
+    # front end, read by the probes) and the count matrix exist only in
+    # this design: each kernel's design_bytes counts them beside its share
+    # of the function's bytes
+    nbytes = group + df.k - 1 + 4 * nw + 32 * sectors
+    bound = bound_ms(nbytes)
+    bin_design = group + df.k - 1 + 4 * nw + snv_kernel.ENTRY_BYTES * entries + 12 * cells
+    probe_design = snv_kernel.ENTRY_BYTES * entries + 32 * sectors + 4 * nw
+    return {"heads": group, "entries": entries, "slices": bins.n_slices,
+            "slice_bits": bins.slice_bits, "cells": cells, "scratch_bytes": bins.nbytes,
+            "sectors": sectors, "probes_per_sector": entries / (df.modulus / 8),
+            "differing": differing, "max_abs_err": err, "bytes": nbytes, "bound_ms": bound,
+            "share_of_bound": bound / (bin_ms + probe_ms),
+            "bin": {"ms": bin_ms, "plain_ms": plain_bin_ms, "bytes": nbytes, "bound_ms": bound,
+                    "design_bytes": bin_design, "floor_ms": copy_ms(bin_design, flush),
+                    "floor": "device copy of its design bytes"},
+            "probe": {"ms": probe_ms, "plain_ms": plain_probe_ms, "bytes": nbytes,
+                      "bound_ms": bound, "design_bytes": probe_design, "floor_ms": floor_ms,
+                      "floor": "random probes of one slice's words, 4 in flight"}}
+
+
 def time_cuda(fn, reps: int, flush, reset=None) -> float:
     """Median ms of ``fn`` over ``reps`` launches, L2 flushed before each
-    (and ``reset()`` called before that, untimed)."""
+    (and ``reset()`` called before that, untimed), after one untimed call."""
     import torch
 
     fn()  # warm
@@ -2121,6 +1886,21 @@ def time_cuda(fn, reps: int, flush, reset=None) -> float:
     return float(np.median(times))
 
 
+def bound_ms(nbytes: int) -> float:
+    """The least ms the card could take to move ``nbytes`` at its HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def copy_ms(nbytes: int, flush) -> float:
+    """A device copy of ``nbytes`` / 2 bytes (``nbytes`` moved): the
+    streaming floor of a kernel that reads and writes ``nbytes`` in all."""
+    import torch
+
+    src = torch.empty(max(1, nbytes // 2), dtype=torch.uint8, device=flush.device)
+    dst = torch.empty_like(src)
+    return time_cuda(lambda: dst.copy_(src), REPS, flush)
+
+
 def yardsticks(table, probes: int, threads: int, batch: int, flush) -> tuple:
     """(floor ms, take ms): the probe floor at ``probes`` random probes of
     ``table`` from ``threads`` threads with ``batch`` loads in flight, and
@@ -2129,82 +1909,48 @@ def yardsticks(table, probes: int, threads: int, batch: int, flush) -> tuple:
 
     from ntedit_tpu_torch.ops import gate_kernel
 
-    floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads, batch), 20, flush)
+    floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads, batch), REPS,
+                         flush)
     idx = torch.randint(0, table.numel(), (probes,), device=table.device)
     return floor_ms, time_cuda(lambda: torch.take(table, idx), 10, flush)
 
 
-def snv_cand_numbers(seq_dev, n: int, L: int, df, flush, other=None) -> dict:
+def snv_cand_numbers(seq_dev, n: int, L: int, df, flush) -> dict:
     """The SNV candidate kernel on the chunk against its plain version, its
     bytes bound, the probe floor at its own probe count and loads in
-    flight, and a torch.take gather of as many random words; with
-    ``other`` (utils/other.py CandWords), that checkout's kernel in turns."""
+    flight, and a torch.take gather of as many random words."""
     from ntedit_tpu_torch.ops import snv_kernel
-    from ntedit_tpu_torch.utils import snv_sweep
 
     got = snv_kernel.snv_cand_words(seq_dev, n, df)
     want = snv_kernel.snv_cand_words_plain(seq_dev, n, df)
     diff = int((got != want).sum())
     err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
-    if other is not None:
-        diff += int((other.words(seq_dev, n, df) != want).sum())
     if diff or err:
         raise AssertionError("SNV candidate kernel differs from plain at the chunk shape")
     sectors, live, probes = snv_cand_probed(seq_dev, n, df)
     nbytes = L + 4 * (-(-n // 32)) + 32 * sectors
     floor_ms, take_ms = yardsticks(df.table, probes, -(-n // 32),
                                    snv_kernel.CAND_BATCH[df.layout], flush)
-    cases = {"this": lambda: snv_kernel.snv_cand_words(seq_dev, n, df)}
-    if other is not None:
-        cases["other"] = lambda: other.words(seq_dev, n, df)
-    times = snv_sweep.time_turns(cases, flush, 20)
-    ms = float(np.median(times["this"]))
+    ms = time_cuda(lambda: snv_kernel.snv_cand_words(seq_dev, n, df), REPS, flush)
     plain_ms = time_cuda(lambda: snv_kernel.snv_cand_words_plain(seq_dev, n, df), 3, flush)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"heads": n, "live_heads": live, "probes": probes, "sectors": sectors,
-            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
-            "ms_over_floor": ms / floor_ms, "differing_words": diff, "max_abs_err": err,
-            "other_ms": float(np.median(times["other"])) if other is not None else None}
+            "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
+            "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms(nbytes) / ms,
+            "ms_over_floor": ms / floor_ms, "differing_words": diff, "max_abs_err": err}
 
 
-SITE_ROUNDS = 20  # rounds in turns of the site kernel's timings
 # what the kernels line gives of the site kernel beside the usual keys
-SITE_KEYS = ("faster_than_other_rounds", "rounds", "probes", "floor_threads")
+SITE_KEYS = ("probes", "floor_threads")
 
 
-def site_turns(this, other, want, flush) -> dict:
-    """The site kernel at one shape: ``this`` (the wrapper as the path
-    calls it) and ``other`` (another checkout's kernel, or None), each a
-    callable giving rows, held to ``want``, then timed in turns
-    (utils/snv_sweep.py time_turns, L2 flushed), SITE_ROUNDS rounds: ms
-    (median) of each, and the rounds in which this was the faster."""
-    from ntedit_tpu_torch.utils import snv_sweep
-
-    cases = {"this": this} if other is None else {"this": this, "other": other}
-    for name, fn in cases.items():
-        diff = int((fn() != want).any(1).sum())
-        if diff:
-            raise AssertionError(f"site rows ({name}) differ from plain in {diff} rows")
-    times = snv_sweep.time_turns(cases, flush, SITE_ROUNDS)
-    out = {"ms": float(np.median(times["this"])), "other_ms": None,
-           "faster_than_other_rounds": None, "rounds": SITE_ROUNDS}
-    if other is not None:
-        out["other_ms"] = float(np.median(times["other"]))
-        out["faster_than_other_rounds"] = sum(a < b for a, b in zip(times["this"], times["other"]))
-    return out
-
-
-def snv_site_numbers(seq: np.ndarray, df, jump: int, flush, other=None) -> dict:
+def snv_site_numbers(seq: np.ndarray, df, jump: int, flush) -> dict:
     """The SNV site kernel at the shape the SNV path gives it: one launch on
     all the candidates of the contig ``seq``.  The rows the path's own pass
     brings back (flag.snv_site_data) and the kernel's on the same candidates
-    are held to the plain version; then the kernel's ms (in turns with
-    ``other``, utils/other.py SiteRows, that checkout's kernel, where
-    given), the plain version's, the bytes bound,
-    the probe floor (the probes the function needs, from as many threads as
-    the kernel gives the list, its loads in flight) and a torch.take gather
-    of as many words."""
+    are held to the plain version; then the kernel's ms, the plain
+    version's, the bytes bound, the probe floor (the probes the function
+    needs, from as many threads as the kernel gives the list, its loads in
+    flight) and a torch.take gather of as many words."""
     import torch
 
     from ntedit_tpu_torch.engine import flag
@@ -2234,19 +1980,15 @@ def snv_site_numbers(seq: np.ndarray, df, jump: int, flush, other=None) -> dict:
     threads = snv_kernel.SITE_LANES * g
     floor_ms, take_ms = yardsticks(df.table, probes, threads, snv_kernel.SITE_BATCH[df.layout],
                                    flush)
-    turns = site_turns(
-        lambda: snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump),
-        None if other is None else lambda: other.rows(seq_dev, n, cand, df, jump, False),
-        want, flush)
+    ms = time_cuda(lambda: snv_kernel.snv_site_rows(seq_dev, n, cand, df, jump), REPS, flush)
     plain_ms = time_cuda(lambda: snv_kernel.snv_site_rows_plain(seq_dev, n, cand, df, jump),
                          1, flush)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ms = turns["ms"]
     return {"heads": n, "candidates": g, "valid_rows": valid, "jump": jump, "probes": probes,
-            "floor_threads": threads, "sectors": sectors, "bytes": nbytes, **turns,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "floor_ms": floor_ms, "take_ms": take_ms,
-            "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
-            "differing_rows": diff, "path_differing_rows": path_diff, "max_abs_err": err}
+            "floor_threads": threads, "sectors": sectors, "bytes": nbytes, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes), "floor_ms": floor_ms,
+            "take_ms": take_ms, "share_of_bound": bound_ms(nbytes) / ms,
+            "ms_over_floor": ms / floor_ms, "differing_rows": diff,
+            "path_differing_rows": path_diff, "max_abs_err": err}
 
 
 def covered_bytes(heads, widths, size: int) -> int:
@@ -2260,18 +2002,15 @@ def covered_bytes(heads, widths, size: int) -> int:
     return int((torch.cumsum(marks, 0)[:size] > 0).sum())
 
 
-def mask_kernel_numbers(seq: np.ndarray, seq_dev, n: int, df, flush, rounds: int = 10) -> dict:
+def mask_kernel_numbers(seq: np.ndarray, seq_dev, n: int, df, flush) -> dict:
     """The mask kernel at the native path's shape, the contig's gates (one
-    launch a contig), in both forms, each bit-exact to its plain version,
-    the path's masks (flag.contig_gates_and_masks, and the replay's
-    flag.polish_candidate_masks) to the gated one; each form's probes (and
-    per informative gate), its bytes bound (the gate list, the output, the
-    distinct bytes of the windows, the filter sectors that form probes
-    once), its probe floor (as many random probes from one thread a gate,
-    the form's loads in flight), a torch.take gather of as many words, its
-    plain version's ms; then the two forms in turns, ``rounds`` rounds
-    (gated, four; then four, gated), the median of 5 launches each, L2
-    flushed before each."""
+    launch a contig), bit-exact to its plain version, and the path's masks
+    (flag.contig_gates_and_masks, and the replay's
+    flag.polish_candidate_masks) to it; its probes (and per informative
+    gate), its bytes bound (the gate list, the output, the distinct bytes
+    of the windows, the filter sectors it probes once), its probe floor
+    (as many random probes from one thread a gate, its loads in flight), a
+    torch.take gather of as many words, its plain version's ms."""
     import torch
 
     from ntedit_tpu_torch.engine import flag
@@ -2284,67 +2023,45 @@ def mask_kernel_numbers(seq: np.ndarray, seq_dev, n: int, df, flush, rounds: int
     replay_masks = flag.polish_candidate_masks(seq, df, host_gates)
     gates = torch.from_numpy(host_gates).to(seq_dev.device)
     g = int(gates.numel())
+    got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df)
+    want = snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df, True)
+    diff = int((got != want).sum())
+    path_diff = sum(int((torch.from_numpy(m).to(want.device) != want).sum())
+                    for m in (path_masks, replay_masks))
+    err = int((got.long() - want.long()).abs().max())
+    if diff or path_diff or err:
+        raise AssertionError(f"mask kernel differs from plain at the contig shape: "
+                             f"{diff} masks, {path_diff} of the path's own")
+    clean, hashes, probed = snv_kernel.mask_hashes(seq_dev, n, gates, k, True)
+    secs, probes = probe_cost(df, torch.cat([x[p] for x, p in zip(hashes, probed)]))
+    sectors = int(torch.unique(torch.cat(secs)).numel())
     read = covered_bytes(gates, torch.full_like(gates, k), len(seq))
-    out = {"gates": g}
-    forms = {}
-    for name, gated in (("gated", True), ("four_probe", False)):
-        got = snv_kernel.polish_cand_masks(seq_dev, n, gates, df, gated=gated)
-        want = snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df, gated)
-        diff = int((got != want).sum())
-        path_diff = sum(int((torch.from_numpy(m).to(want.device) != want).sum())
-                        for m in (path_masks, replay_masks)) if gated else 0
-        err = int((got.long() - want.long()).abs().max())
-        if diff or path_diff or err:
-            raise AssertionError(f"mask kernel ({name}) differs from plain at the contig shape: "
-                                 f"{diff} masks, {path_diff} of the path's own")
-        clean, hashes, probed = snv_kernel.mask_hashes(seq_dev, n, gates, k, gated)
-        secs, probes = probe_cost(df, torch.cat([h[p] for h, p in zip(hashes, probed)]))
-        sectors = int(torch.unique(torch.cat(secs)).numel())
-        nbytes = 8 * g + g + read + 32 * sectors
-        batch = snv_kernel.MASK_BATCH[gated]
-        floor_ms, take_ms = yardsticks(df.table, probes, g, batch, flush)
-        plain_ms = time_cuda(lambda: snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df,
-                                                                          gated), 1, flush)
-        informative = int(clean.sum())
-        forms[name] = {
-            "informative": informative, "probes": probes,
-            "probes_per_informative_gate": probes / max(informative, 1), "loads_in_flight": batch,
-            "sectors": sectors, "bytes": nbytes, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "floor_ms": floor_ms, "take_ms": take_ms,
-            "differing_masks": diff, "path_differing_masks": path_diff, "max_abs_err": err,
-            "masks": want}
-    if not torch.equal(forms["gated"].pop("masks"), forms["four_probe"].pop("masks")):
-        raise AssertionError("the two mask forms differ at the gates (own k-mer present)")
-    times = {"gated": [], "four_probe": []}
-    for i in range(rounds):
-        for name in (("gated", "four_probe") if i % 2 == 0 else ("four_probe", "gated")):
-            gated = name == "gated"
-            times[name].append(time_cuda(
-                lambda: snv_kernel.polish_cand_masks(seq_dev, n, gates, df, gated=gated), 5, flush))
-    for name, row in forms.items():
-        row["ms"] = float(np.median(times[name]))
-        row["round_ms"] = times[name]
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        row["ms_over_floor"] = row["ms"] / row["floor_ms"]
-    out.update(forms["gated"])
-    out["four_probe"] = forms["four_probe"]
-    out["gated_faster_rounds"] = sum(a < b for a, b in zip(times["gated"], times["four_probe"]))
-    return out
+    nbytes = 8 * g + g + read + 32 * sectors
+    floor_ms, take_ms = yardsticks(df.table, probes, g, snv_kernel.MASK_BATCH, flush)
+    ms = time_cuda(lambda: snv_kernel.polish_cand_masks(seq_dev, n, gates, df), REPS, flush)
+    plain_ms = time_cuda(lambda: snv_kernel.polish_cand_masks_plain(seq_dev, n, gates, df, True),
+                         1, flush)
+    informative = int(clean.sum())
+    return {"gates": g, "informative": informative, "probes": probes,
+            "probes_per_informative_gate": probes / max(informative, 1),
+            "loads_in_flight": snv_kernel.MASK_BATCH, "sectors": sectors, "bytes": nbytes,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes), "floor_ms": floor_ms,
+            "take_ms": take_ms, "share_of_bound": bound_ms(nbytes) / ms,
+            "ms_over_floor": ms / floor_ms, "differing_masks": diff,
+            "path_differing_masks": path_diff, "max_abs_err": err}
 
 
-def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> dict:
+def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int) -> dict:
     """The polish kernels at the shapes the main path gives them, on the
     30 Mbp contig: the site-row kernel on its first 2^22-head chunk's gates
     (one launch a chunk on the path), the mask kernel on all its gates (one
     launch a contig on the native path: mask_kernel_numbers).  The rows
     against their plain version, with the path's own rows
     (flag.iter_polish_site_chunks) held to it too; then ms (CUDA events, L2
-    flushed; in turns with ``other``, utils/other.py SiteRows, that
-    checkout's kernel, where given),
-    the plain version's ms, the bytes bound (the gate list, the output,
-    every distinct byte read, the filter sectors probed once), the probe
-    floor (as many random probes from as many threads, the kernel's loads
-    in flight) and a torch.take gather of as many words."""
+    flushed), the plain version's ms, the bytes bound (the gate list, the
+    output, every distinct byte read, the filter sectors probed once), the
+    probe floor (as many random probes from as many threads, the kernel's
+    loads in flight) and a torch.take gather of as many words."""
     import torch
 
     from ntedit_tpu_torch.core import bloom
@@ -2353,7 +2070,7 @@ def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> di
 
     dev = torch.device("cuda")
     df = bloom.DeviceFilter.from_host(host_bf, dev)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
+    flush = flush_buffer()
     k = df.k
     n = len(seq) - k + 1
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
@@ -2389,31 +2106,25 @@ def polish_kernel_numbers(seq: np.ndarray, host_bf, jump: int, other=None) -> di
     threads = max(sum(rt * c for rt, c in zip(lanes, per_block)), 1)
     floor_ms, take_ms = yardsticks(df.table, probes, threads, snv_kernel.SITE_BATCH[df.layout],
                                    flush)
-    turns = site_turns(
-        lambda: snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump),
-        None if other is None else lambda: other.rows(seq_dev, n, gates, df, jump, True),
-        want, flush)
-    ms = turns["ms"]
+    ms = time_cuda(lambda: snv_kernel.polish_site_rows(seq_dev, n, gates, df, jump), REPS, flush)
     plain_ms = time_cuda(lambda: snv_kernel.polish_site_rows_plain(seq_dev, n, gates, df, jump),
                          1, flush)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out["site_rows"] = {
         "chunk_heads": m, "gates": g, "cluster_starts": int(starts.numel()), "valid_rows": valid,
         "exact_gates": int((want[:, 0] & 32 != 0).sum()), "probes": probes, "sectors": sectors,
-        "floor_threads": threads, "bytes": nbytes, **turns, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "floor_ms": floor_ms, "take_ms": take_ms, "share_of_bound": bound_ms / ms,
-        "ms_over_floor": ms / floor_ms, "differing_rows": diff, "path_differing_rows": path_diff,
-        "max_abs_err": err}
+        "floor_threads": threads, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms(nbytes), "floor_ms": floor_ms, "take_ms": take_ms,
+        "share_of_bound": bound_ms(nbytes) / ms, "ms_over_floor": ms / floor_ms,
+        "differing_rows": diff, "path_differing_rows": path_diff, "max_abs_err": err}
 
-    # candidate masks: every gate of the contig, in both forms
+    # candidate masks: every gate of the contig
     out["cand_masks"] = mask_kernel_numbers(seq, seq_dev, n, df, flush)
     del df, flush
     torch.cuda.empty_cache()
     return out
 
 
-def phase_numbers(power: str, against=None) -> dict:
+def phase_numbers(power: str) -> dict:
     """The gate pass at the main path's chunk shape (2^22 heads, k=25)
     with the filters of a 50 Mbp assembly (256 MiB blocked), for the
     blocked, plain and counting layouts, and the SNV candidate pass for the
@@ -2424,10 +2135,8 @@ def phase_numbers(power: str, against=None) -> dict:
     from ntedit_tpu_torch.engine import flag
     from ntedit_tpu_torch.ops import gate_kernel
     from ntedit_tpu_torch.utils import simulate
-    from ntedit_tpu_torch.utils.other import CandWords
 
     dev = torch.device("cuda")
-    other = CandWords(against) if against else None
     k = 25
     n = flag.DEFAULT_CHUNK
     L = n + k - 1
@@ -2437,7 +2146,7 @@ def phase_numbers(power: str, against=None) -> dict:
     buf = torch.zeros(gate_kernel.padded_len(n), dtype=torch.uint8)
     buf[:L] = torch.from_numpy(draft.copy())
     seq_dev = buf.to(dev)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the L2
+    flush = flush_buffer()
     rows = {}
     snv_rows = {}
     for name, hf in simulate.chunk_filters(truth, k, GENOME).items():
@@ -2449,7 +2158,7 @@ def phase_numbers(power: str, against=None) -> dict:
         err = int(((got.long() & 0xFFFFFFFF) - (want.long() & 0xFFFFFFFF)).abs().max())
         if diff or err:
             raise AssertionError(f"{name}: kernel differs from plain at the chunk shape")
-        ms = time_cuda(lambda: gate_kernel.gate_words(seq_dev, n, df, False, p), 20, flush)
+        ms = time_cuda(lambda: gate_kernel.gate_words(seq_dev, n, df, False, p), REPS, flush)
         plain_ms = time_cuda(lambda: gate_kernel.gate_words_plain(seq_dev, n, df, False, p),
                              3, flush)
         sectors, live, probes = probed_sectors(seq_dev, n, df, p)
@@ -2465,22 +2174,253 @@ def phase_numbers(power: str, against=None) -> dict:
             if int(floor_words[tid]) & 0xFFFFFFFF != want_word:
                 raise AssertionError(f"{name}: probe floor word {tid} differs from its plain version")
         del host_table
-        floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads), 20, flush)
+        floor_ms = time_cuda(lambda: gate_kernel.probe_floor(table, probes, threads), REPS, flush)
         idx = torch.randint(0, table.numel(), (n,), device=dev)
         take_ms = time_cuda(lambda: torch.take(table, idx), 10, flush)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         if name != "counting":
-            snv_rows[name] = snv_cand_numbers(seq_dev, n, L, df, flush, other)
+            snv_rows[name] = snv_cand_numbers(seq_dev, n, L, df, flush)
         rows[name] = {"heads": n, "live_heads": live, "probes": probes,
                       "ms": ms, "plain_ms": plain_ms, "take_ms": take_ms, "floor_ms": floor_ms,
-                      "sectors": sectors, "bytes": nbytes, "bound_ms": bound_ms,
-                      "share_of_bound": bound_ms / ms, "ms_over_floor": ms / floor_ms,
+                      "sectors": sectors, "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                      "share_of_bound": bound_ms(nbytes) / ms, "ms_over_floor": ms / floor_ms,
                       "differing_words": diff, "max_abs_err": err,
                       "filter_bytes": hf.bytes}
         del df, table, idx
         torch.cuda.empty_cache()
     return {"phase": "numbers", "power_limit": power, "layouts": rows, "snv": snv_rows,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: numbers of the filter-build kernels, on phase 6's reads
+# ---------------------------------------------------------------------------
+
+def count_numbers(seqs: list, k: int, h: int, slots: int, want, flush) -> dict:
+    """The count pass: each kernel on the first batch (partition, apply, the
+    two with the scan: ``kmer_count``) and the whole pass, against its plain
+    versions (``want``: the plain version's counts of the whole pass), its
+    bounds and floors."""
+    import torch
+
+    from ntedit_tpu_torch.core import nthash as nt
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    dev = flush.device
+    seq0, n0 = seqs[0]
+    table = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=dev)
+    bins = bk.Bins(slots, h, max(n for _, n in seqs), dev)
+
+    def whole_pass():
+        for seq, n in seqs:
+            bk.kmer_count(seq, n, k, h, table, slots, bins)
+
+    whole_pass()
+    differing = int((table != want).sum())
+    # the first batch's bins against the plain partition's, as multisets
+    bk.kmer_partition(seq0, n0, k, bins)
+    plain_bins = bk.Bins(slots, h, n0, dev)
+    bk.kmer_partition_plain(seq0, n0, k, plain_bins)
+    cells = bins.cells()
+    same_bins = torch.equal(bins.counts[:cells], plain_bins.counts[:cells]) and torch.equal(
+        torch.sort(bk.bin_slots(bins)).values, torch.sort(bk.bin_slots(plain_bins)).values)
+    differing += 0 if same_bins else 1
+    entries = int(bins.ends[cells - 1])
+    can = bk.valid_hashes(seq0, n0, k)
+    sectors = int(torch.unique(torch.cat([nt.umod(x, slots) for x in nt.extend(can, k, h)])
+                               >> 5).numel())
+    zero = table.zero_
+    ms = {"partition": time_cuda(lambda: bk.kmer_partition(seq0, n0, k, bins), REPS, flush),
+          "apply": time_cuda(lambda: bk.kmer_count_apply(bins, table), REPS, flush, zero),
+          "plain_apply": time_cuda(lambda: bk.kmer_count_apply_plain(bins, table), 2, flush,
+                                   zero),
+          "plain_partition": time_cuda(lambda: bk.kmer_partition_plain(seq0, n0, k, plain_bins),
+                                       2, flush),
+          "count": time_cuda(lambda: bk.kmer_count(seq0, n0, k, h, table, slots, bins), REPS,
+                             flush, zero),
+          "plain_count": time_cuda(lambda: bk.kmer_count_plain(seq0, n0, k, h, table, slots), 2,
+                                   flush, zero),
+          "pass": time_cuda(whole_pass, REPS, flush, zero)}
+    # floors: the apply's atomics, random in the table's bytes and in one slice's
+    threads = -(-entries // bk.APPLY_CHUNK) * 256
+    floors = {}
+    for name, nbytes in (("table", -(-slots // 4) * 4), ("slice", min(slots, 1 << bins.slice_bits))):
+        t = torch.zeros(max(1, nbytes // 4), dtype=torch.int32, device=dev)
+        floors[name] = time_cuda(lambda: bk.atomic_floor(t, entries, threads), REPS, flush)
+        if int(t.sum()) != entries * (REPS + 1):
+            raise AssertionError("the atomic floor lost an add")
+        del t
+    cell_bytes = 12 * cells  # the count matrix and its scan
+    part_bytes = n0 + k - 1 + 4 * entries + cell_bytes
+    apply_bytes = 4 * entries + cell_bytes + 2 * 32 * sectors
+    count_bytes = n0 + k - 1 + 2 * 32 * sectors  # the count's bound: the function's bytes
+    return {
+        "slots": slots, "slice_bits": bins.slice_bits, "slices": bins.n_slices,
+        "scratch_bytes": bins.nbytes, "windows": n0, "increments": entries, "sectors": sectors,
+        "differing": differing,
+        "partition": {"ms": ms["partition"], "plain_ms": ms["plain_partition"],
+                      "bytes": part_bytes, "bound_ms": bound_ms(part_bytes),
+                      "floor_ms": copy_ms(part_bytes, flush), "floor": "device copy of its bytes"},
+        "apply": {"ms": ms["apply"], "plain_ms": ms["plain_apply"], "bytes": apply_bytes,
+                  "bound_ms": bound_ms(apply_bytes), "floor_ms": floors["slice"],
+                  "floor_table_ms": floors["table"],
+                  "floor": "random atomicAdd, one slice's bytes"},
+        "count": {"ms": ms["count"], "plain_ms": ms["plain_count"], "bytes": count_bytes,
+                  "bound_ms": bound_ms(count_bytes), "floor_ms": floors["table"],
+                  "pass_ms": ms["pass"], "batches": len(seqs)},
+    }
+
+
+def insert_numbers(seqs: list, k: int, h: int, cutoff: int, counters, slots: int, nw: int,
+                   flush) -> dict:
+    """The insert pass at ``cutoff`` into ``nw`` blocked words, reading the
+    whole build's ``counters``: the solid bits and the insert of each batch
+    against their plain versions; the pass (solid bits, then every batch)
+    against its bound, and per batch (the pass over its launches); the
+    insert kernel alone on the first batch against the probe floor on the
+    solid bits and on the counters."""
+    import torch
+
+    from ntedit_tpu_torch.core import nthash as nt
+    from ntedit_tpu_torch.ops import build_kernel as bk
+    from ntedit_tpu_torch.ops import gate_kernel
+
+    dev = flush.device
+    seq0, n0 = seqs[0]
+    words = torch.zeros(nw, dtype=torch.int32, device=dev)
+    want = torch.zeros_like(words)
+    for seq, n in seqs:
+        bk.kmer_insert_plain(seq, n, k, h, want, "blocked", nw, counters, slots, cutoff)
+    solid = bk.kmer_solid_bits(counters, slots, cutoff)
+    differing = int((solid != bk.kmer_solid_bits_plain(counters, slots, cutoff)).sum())
+    for seq, n in seqs:
+        bk.kmer_insert(seq, n, k, h, words, "blocked", nw, solid, slots)
+    differing += int((words != want).sum())
+    one = torch.zeros_like(words)
+    bk.kmer_insert(seq0, n0, k, h, one, "blocked", nw, solid, slots)
+    one_want = torch.zeros_like(words)
+    bk.kmer_insert_bits_plain(seq0, n0, k, h, one_want, "blocked", nw, solid, slots)
+    differing += int((one != one_want).sum())
+    # the bound of the pass: every batch's ASCII, each counter sector its
+    # probes touch and each word sector it writes, once
+    c_touched = torch.zeros(-(-slots // 32), dtype=torch.bool, device=dev)
+    w_touched = torch.zeros(-(-nw // 8), dtype=torch.bool, device=dev)
+    ascii_bytes = probes0 = valid0 = b_sectors0 = w_sectors0 = 0
+    for i, (seq, n) in enumerate(seqs):
+        ascii_bytes += n + k - 1
+        can = bk.valid_hashes(seq, n, k)
+        idx = [nt.umod(x, slots) for x in nt.extend(can, k, h)]
+        for s in idx:
+            c_touched[s >> 5] = True
+        ok = bk.min_count(can, k, h, counters, slots).long() >= cutoff
+        w_touched[(can[ok] & (nw - 1)) >> 3] = True
+        if i == 0:
+            valid0, probes0 = int(can.numel()), h * int(can.numel())
+            b_sectors0 = int(torch.unique(torch.cat(idx) >> 8).numel())
+            w_sectors0 = int(torch.unique((can[ok] & (nw - 1)) >> 3).numel())
+    pass_bytes = ascii_bytes + 32 * int(c_touched.sum()) + 2 * 32 * int(w_touched.sum())
+    del c_touched, w_touched
+    zero = words.zero_
+
+    def whole_pass():
+        s = bk.kmer_solid_bits(counters, slots, cutoff)
+        for seq, n in seqs:
+            bk.kmer_insert(seq, n, k, h, words, "blocked", nw, s, slots)
+
+    ms = {"pass": time_cuda(whole_pass, REPS, flush, zero),
+          "solid_bits": time_cuda(lambda: bk.kmer_solid_bits(counters, slots, cutoff), REPS,
+                                  flush),
+          "insert": time_cuda(lambda: bk.kmer_insert(seq0, n0, k, h, words, "blocked", nw, solid,
+                                                     slots), REPS, flush, zero),
+          "plain_solid_bits": time_cuda(lambda: bk.kmer_solid_bits_plain(counters, slots, cutoff),
+                                        2, flush),
+          "plain_insert": time_cuda(lambda: bk.kmer_insert_bits_plain(
+              seq0, n0, k, h, words, "blocked", nw, solid, slots), 2, flush, zero),
+          "plain_pass": time_cuda(lambda: [bk.kmer_insert_plain(
+              seq, n, k, h, words, "blocked", nw, counters, slots, cutoff) for seq, n in seqs],
+              1, flush, zero)}
+    threads = -(-n0 // 32)
+    floor_bits = time_cuda(lambda: gate_kernel.probe_floor(solid, probes0, threads, 4), REPS,
+                           flush)
+    floor_counters = time_cuda(lambda: gate_kernel.probe_floor(counters, probes0, threads, 4),
+                               REPS, flush)
+    solid_bytes = slots + 4 * solid.numel()
+    one_bytes = n0 + k - 1 + 32 * b_sectors0 + 2 * 32 * w_sectors0
+    return {
+        "slots": slots, "words": nw, "cutoff": cutoff, "batches": len(seqs), "valid": valid0,
+        "probes": probes0, "differing": differing, "solid_bytes": 4 * solid.numel(),
+        "solid_bits": {"ms": ms["solid_bits"], "plain_ms": ms["plain_solid_bits"],
+                       "bytes": solid_bytes, "bound_ms": bound_ms(solid_bytes),
+                       "floor_ms": copy_ms(solid_bytes, flush), "floor": "device copy of its bytes"},
+        "insert": {"ms": ms["insert"], "plain_ms": ms["plain_insert"], "bytes": one_bytes,
+                   "bound_ms": bound_ms(one_bytes), "floor_ms": floor_bits,
+                   "floor_counters_ms": floor_counters,
+                   "floor": "random probes of the solid bits, 4 in flight"},
+        "pass": {"ms": ms["pass"], "ms_per_batch": ms["pass"] / len(seqs),
+                 "plain_ms": ms["plain_pass"], "bytes": pass_bytes,
+                 "bound_ms": bound_ms(pass_bytes),
+                 "floor_ms": ms["solid_bits"] + len(seqs) * floor_bits},
+    }
+
+
+def hashes_numbers(seqs: list, k: int, flush) -> dict:
+    """The hashes kernel on the first batch (the call, with its read of the
+    totals, at s = 0 and s = 1) and the histogram's whole pass, against the
+    plain version, the bytes bound and a copy of those bytes."""
+    from ntedit_tpu_torch.core import bfbuild
+    from ntedit_tpu_torch.ops import build_kernel as bk
+
+    seq0, n0 = seqs[0]
+    differing = 0
+    for s in (0, 1):
+        got, valid = bk.kmer_valid_hashes(seq0, n0, k, s)
+        want, want_valid = bk.kmer_valid_hashes_plain(seq0, n0, k, s)
+        differing += int(not got.equal(want)) + int(valid != want_valid)
+    emitted = int(bk.valid_hashes(seq0, n0, k).numel())
+
+    def hist(valid_hashes):
+        kept = bfbuild.SampledHashes(1 << 26)
+        for seq, n in seqs:
+            s = kept.s
+            kept.add(*valid_hashes(seq, n, s), s)
+        return kept.histogram(k)
+
+    def this_pass():
+        return hist(lambda seq, n, s: bk.kmer_valid_hashes(seq, n, k, s))
+
+    want_hist = hist(lambda seq, n, s: bk.kmer_valid_hashes_plain(seq, n, k, s))
+    got_hist = this_pass()
+    differing += int((got_hist.f1, got_hist.f0) != (want_hist.f1, want_hist.f0)
+                     or not np.array_equal(got_hist.spectrum, want_hist.spectrum))
+    nbytes = n0 + k - 1 + 8 * emitted
+    out = {"windows": n0, "valid": emitted, "batches": len(seqs), "differing": differing,
+           "bytes": nbytes, "bound_ms": bound_ms(nbytes), "floor_ms": copy_ms(nbytes, flush),
+           "floor": "device copy of its bytes",
+           "plain_ms": time_cuda(lambda: bk.kmer_valid_hashes_plain(seq0, n0, k), 2, flush),
+           "ms": time_cuda(lambda: bk.kmer_valid_hashes(seq0, n0, k), REPS, flush),
+           "sampled_ms": time_cuda(lambda: bk.kmer_valid_hashes(seq0, n0, k, 1), REPS, flush),
+           "pass_ms": time_cuda(this_pass, REPS, flush)}
+    if differing:
+        raise AssertionError(f"the hashes kernel differs from its plain version: {out}")
+    return out
+
+
+def build_numbers(seqs: list, k: int, hash_num: int, cutoff: int, counters: np.ndarray,
+                  nw: int, flush) -> dict:
+    """hashes_numbers, count_numbers and insert_numbers on the reads'
+    batches ``seqs`` with polish --reads' k, hashes and cutoff, at the
+    tables it sized for them (the plain build's ``counters``, ``nw`` blocked
+    words); raises when a kernel differs from its plain version."""
+    import torch
+
+    slots = len(counters)
+    want = torch.zeros(-(-slots // 4) * 4, dtype=torch.uint8, device=flush.device)
+    want[:slots] = torch.from_numpy(counters)
+    out = {"kmer_valid_hashes": hashes_numbers(seqs, k, flush),
+           "count": count_numbers(seqs, k, hash_num, slots, want, flush),
+           "insert": insert_numbers(seqs, k, hash_num, cutoff, want, slots, nw, flush)}
+    if out["count"]["differing"] or out["insert"]["differing"]:
+        raise AssertionError(f"a build kernel differs from its plain version: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2561,9 +2501,9 @@ def reduce_numbers(flush) -> dict:
         if err:
             raise AssertionError(f"{name} differs from its plain version at the timed shape")
         row = {"rows": REDUCE_D, "m": m, "bytes": (REDUCE_D + 1) * m * dtype.itemsize,
-               "ms": time_cuda(lambda: fn(rows), 20, flush),
+               "ms": time_cuda(lambda: fn(rows), REPS, flush),
                "plain_ms": time_cuda(lambda: plain(rows), 10, flush), "max_abs_err": err}
-        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = bound_ms(row["bytes"])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["library_ms"] = None
         if name == "or_rows":
@@ -2574,7 +2514,7 @@ def reduce_numbers(flush) -> dict:
                 for r in rows[2:]:
                     acc.bitwise_or_(r)
 
-            row["library_ms"] = time_cuda(chained, 20, flush)
+            row["library_ms"] = time_cuda(chained, REPS, flush)
         out[name] = row
         del rows, got, want
     return out
@@ -2747,14 +2687,12 @@ def sharded_polish_run(tag: str, work: str, mesh, host_bf, draft_path: str, ref_
            "gate_launches": launches["gate_words"],
            "cand_launches": _cand_launches(launches),
            "mask_launches": launches["polish_cand_masks"],
-           "four_probe_mask_launches": launches["polish_cand_masks.four_probe"],
            "gather_ranks": mesh.size, "byte_identical": same}
     if not all(same.values()):
         raise AssertionError(f"{tag}: outputs differ from the host-only full scan: {same}")
     kernel = "snv_cand_words" if cfg.snv else "gate_words"
     if (_cand_launches(launches) if cfg.snv else launches[kernel]) <= 0 or (
-            cand and launches["polish_cand_masks.gated"] <= 0) or \
-            launches["polish_cand_masks.four_probe"]:
+            cand and launches["polish_cand_masks"] <= 0):
         raise AssertionError(f"{tag}: a kernel of the sharded polish never launched: {launches}")
     return out
 
@@ -2877,12 +2815,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    ap = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", metavar="DIR", default=None,
-                    help="also time the dense hashes kernel, the candidate kernel and the "
-                         "site-row kernel of the checkout at DIR (utils/other.py) in turns "
-                         "with this checkout's")
-    against = ap.parse_args(argv).against
+    argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0]
+                            ).parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -2915,7 +2849,7 @@ def main(argv=None) -> int:
         emit(timed("engines", phase_engines, work))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for row in timed("main", phase_main, work, against):
+        for row in timed("main", phase_main, work):
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             main_rows.append(row)
             emit(row)
@@ -2923,19 +2857,19 @@ def main(argv=None) -> int:
             main_rows.append(row)
             emit(row)
         torch.cuda.reset_peak_memory_stats()
-        snv_rows = timed("snv", phase_snv, work, against)
+        snv_rows = timed("snv", phase_snv, work)
         for row in snv_rows:
             row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
             emit(row)
-        build = timed("filter_build", phase_filter_build, work, against)
-        build_numbers = build.pop("kernel_numbers")
+        build = timed("filter_build", phase_filter_build, work)
+        build_kernels = build.pop("kernel_numbers")
         emit(build)
         torch.cuda.empty_cache()
         mesh = timed("mesh", phase_mesh, work)
         emit(mesh)
     torch.cuda.reset_peak_memory_stats()
-    numbers = timed("numbers", phase_numbers, power, against)
-    numbers["build"] = build_numbers
+    numbers = timed("numbers", phase_numbers, power)
+    numbers["build"] = build_kernels
     emit(numbers)
     blk = numbers["layouts"]["blocked"]
     differing = kernel["differing_words"] + sum(
@@ -2984,10 +2918,9 @@ def main(argv=None) -> int:
             "library_ms": None,
             "take_ms": one["take_ms"],
             "floor_ms": one["floor_ms"],
-            "other_ms": one["other_ms"],
             **({key: one[key] for key in SITE_KEYS} if name == "snv_site_rows" else {}),
             "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                         "plain_ms", "other_ms", *SITE_KEYS)
+                                                         "plain_ms", *SITE_KEYS)
                                  if key in r}
                         for layout, r in parts.items()},
         })
@@ -3018,7 +2951,6 @@ def main(argv=None) -> int:
             "entries": binned["entries"],
             "pass_ms": binned["pass"]["path"],
             "kernel_pass_ms": binned["pass"]["kernel"],
-            "other_pass_ms": binned["pass"].get("other"),
         })
     # the polish kernels: the site rows at the chunk shape of main_blocked's
     # and main_plain's rows-on runs, the masks at the contig shape of the
@@ -3046,41 +2978,22 @@ def main(argv=None) -> int:
             "library_ms": None,
             "take_ms": one["take_ms"],
             "floor_ms": one["floor_ms"],
-            "other_ms": one.get("other_ms"),
             **({key: one[key] for key in SITE_KEYS} if name == "polish_site_rows" else {}),
-            **({key: one[key] for key in MASK_KEYS} if name == "polish_cand_masks" else {}),
+            **({"form": "gated", **{key: one[key] for key in MASK_KEYS}}
+               if name == "polish_cand_masks" else {}),
             "layouts": {layout: {key: r[key] for key in ("ms", "bound_ms", "floor_ms", "take_ms",
-                                                         "plain_ms", "other_ms", *SITE_KEYS,
-                                                         *MASK_KEYS)
+                                                         "plain_ms", *SITE_KEYS, *MASK_KEYS)
                                  if key in r}
                         for layout, r in parts.items()},
         })
-        if name == "polish_cand_masks":
-            # both forms of the kernel, each with the launches the wrapper
-            # counted for it on the native path's run (run_native holds them
-            # to one gated launch a contig and no four-probe one)
-            by_form = main_rows[0]["native"]["mask_launches_by_form"]
-            lines[-1]["forms"] = {
-                form: {"launches": by_form[form],
-                       **{key: one_form[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                         "floor_ms", "take_ms", *MASK_KEYS)},
-                       "layouts": {layout: {key: (r if form == "gated" else r["four_probe"])[key]
-                                            for key in ("ms", "bound_ms", "floor_ms",
-                                                        "plain_ms", *MASK_KEYS)}
-                                   for layout, r in parts.items()}}
-                for form, one_form in (("gated", one), ("four_probe", one["four_probe"]))}
-            lines[-1]["gated_faster_rounds"] = one["gated_faster_rounds"]
     # the filter-build kernels: launches from polish --reads, times on its
-    # batches at its tables (the count and insert passes: build_sweep)
-    count, insert = build_numbers["count"], build_numbers["insert"]
-    hashes = build_numbers["kmer_valid_hashes"]
+    # batches at its tables (build_numbers)
+    count, insert = build_kernels["count"], build_kernels["insert"]
+    hashes = build_kernels["kmer_valid_hashes"]
     build_ok = kernel["build_differing"] == 0  # build_numbers raised on any other difference
     for name, line, one, extra in (
-            ("kmer_valid_hashes", 49, {**hashes, "ms": hashes["device_ms"]},
-             {"call_ms": hashes["hashes_ms"], "sampled_ms": hashes["device_sampled_ms"],
-              "pass_ms": hashes["pass_ms"], "other_ms": hashes.get("other_kernel_ms"),
-              "other_with_compaction_ms": hashes.get("other_hashes_ms"),
-              "other_pass_ms": hashes.get("other_pass_ms")}),
+            ("kmer_valid_hashes", 49, hashes,
+             {"sampled_ms": hashes["sampled_ms"], "pass_ms": hashes["pass_ms"]}),
             ("kmer_partition", 293, count["partition"],
              {"slice_bits": count["slice_bits"], "scratch_bytes": count["scratch_bytes"],
               "count_ms": count["count"]["ms"], "count_bound_ms": count["count"]["bound_ms"],

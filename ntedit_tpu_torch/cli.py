@@ -687,9 +687,13 @@ def main(argv=None) -> None:
         sys.exit(0)
     from ntedit_tpu_torch.parallel import distributed as dist
 
-    dist.initialize_from_env(args.device)
-    with profiling.trace(device=args.device):  # a Chrome trace when NTEDIT_TPU_TRACE is set
-        args.func(args)
+    joined = dist.initialize_from_env(args.device)
+    try:
+        with profiling.trace(device=args.device):  # a Chrome trace when NTEDIT_TPU_TRACE is set
+            args.func(args)
+    finally:
+        if joined:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -64,7 +64,7 @@
 //       not change the result.  A thread keeps kApplyPerThread entries in
 //       flight: their loads, then their first CAS attempts, back to back.
 //
-// On an H100 (utils/build_sweep.py, PERF.md) slices of 2^25 counters
+// On an H100 (PERF.md section 6) slices of 2^25 counters
 // (32 MiB) were the fastest of 2^22 to 2^26: at 2^26 a slice no longer
 // stays in L2 and the apply slows by a third.  The staging keeps the
 // partition's time about flat in the number of slices; its 4-byte writes

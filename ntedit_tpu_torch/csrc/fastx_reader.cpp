@@ -114,13 +114,11 @@ struct Reader {
     if (gz != nullptr) gzclose(gz);
     if (fd >= 0) close(fd);
     unmap();
-#ifndef NTPU_READER_NO_SPARE
     std::lock_guard<std::mutex> lock(g_spare_mu);
     if (g_spare.data == nullptr && b.high <= kKeep) {
       g_spare = b;
       b = Buffer();
     }
-#endif
     b.release();
   }
 
@@ -279,12 +277,10 @@ void* ntpu_fastx_open(const char* path, long cap) {
   if (fd < 0) return nullptr;
   auto* r = new Reader();
   r->cap = cap > 0 ? static_cast<size_t>(cap) : 0;
-#ifndef NTPU_READER_NO_SPARE
   {
     std::lock_guard<std::mutex> lock(g_spare_mu);
     std::swap(r->b, g_spare);
   }
-#endif
   struct stat st;
   uint8_t magic[2];
   if (r->cap > 0 && fstat(fd, &st) == 0 && S_ISREG(st.st_mode) && st.st_size >= 2 &&

@@ -51,7 +51,7 @@
 //   3. gate: fold the loaded words into the batch's gate bits.
 //
 // kBatch is 2, measured: batches of 1, 2, 4 and 8 heads were timed against
-// each other on the same data (utils/gate_sweep.py), and 2 was the fastest
+// each other on the same data (PERF.md section 6), and 2 was the fastest
 // for plain and counting and within 0.4% of 1 for blocked.  More loads in
 // flight per thread do not help: the 131 k threads of a chunk already keep
 // more probes in flight than the DRAM serves.

@@ -1455,20 +1455,6 @@ int64_t ntr_polish_contig_v2(
   return 0;
 }
 
-int64_t ntr_polish_contig_cand(
-    uint8_t* contig, int64_t L,
-    const int64_t* gates, int64_t n_gates,
-    const NtrFilter* bf, const NtrFilter* bfrep,
-    const NtrParams* params,
-    int64_t* subs_out, int64_t subs_cap, int64_t* n_subs,
-    int64_t* nodes_out, int64_t nodes_cap, int64_t* n_nodes,
-    const uint8_t* gate_cand) {
-  return ntr_polish_contig_v2(contig, L, gates, n_gates, bf, bfrep, params,
-                              subs_out, subs_cap, n_subs,
-                              nodes_out, nodes_cap, n_nodes, gate_cand,
-                              nullptr);
-}
-
 int64_t ntr_polish_contig(
     uint8_t* contig, int64_t L,
     const int64_t* gates, int64_t n_gates,
@@ -1481,7 +1467,5 @@ int64_t ntr_polish_contig(
                               nodes_out, nodes_cap, n_nodes, nullptr,
                               nullptr);
 }
-
-const char* ntr_version(void) { return "ntedit-repair/2"; }
 
 }  // extern "C"

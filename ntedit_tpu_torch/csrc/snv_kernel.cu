@@ -57,17 +57,17 @@
 // Later gates of a cluster are re-evaluated against edited content by the
 // engine and carry bit 5 alone.
 //
-// cand_masks_kernel<L, Gated> replaces _polish_cand_planes_from_codes with
-// its gather _gather_cand_masks.  For every gate head h (int64) it writes
-// one byte: bit c = contains(window at h with its last base set to
-// "ACGT"[c]), all four c, the draft's own base included; 0xFF when [h, h +
-// k) holds a byte that is not ACGTacgt (no information: the engine probes
-// live).  The XLA program computed four bit planes over every head and
-// gathered at the gates; the kernel computes at the gates only.  Gated
-// (every caller on a path): the heads are absence gates of this filter, so
-// at an ACGTacgt window the draft's own base, the window's own k-mer, is
-// absent and its bit is 0 without a probe (the engine reads only the
-// alternates' bits, native/repair.cpp fix_site).
+// cand_masks_kernel<L> replaces _polish_cand_planes_from_codes with its
+// gather _gather_cand_masks.  For every gate head h (int64) it writes one
+// byte: bit c = contains(window at h with its last base set to "ACGT"[c]),
+// for the three alternates c; 0xFF when [h, h + k) holds a byte that is not
+// ACGTacgt (no information: the engine probes live).  The XLA program
+// computed four bit planes over every head and gathered at the gates; the
+// kernel computes at the gates only.  The heads are absence gates of this
+// filter, so at an ACGTacgt window the draft's own base, the window's own
+// k-mer, is absent and its bit is 0 without a probe (the engine reads only
+// the alternates' bits, native/repair.cpp fix_site).  A form that probed
+// all four bases lost to this one in 10 of 10 rounds (PERF.md section 6).
 //
 // Bound.  All but the binned pass are bound as the gate kernel is: by the
 // rate at which the DRAM serves random 32-byte sectors of a filter far larger than the L2
@@ -80,7 +80,7 @@
 // 3, on a few thousand candidates or cluster starts per million heads; its
 // bytes (the head list, the rows, 2k bytes a row) are a tenth of what its
 // random probes cost, so its floor is those probes from its own threads.
-// The mask pass makes three probes per informative gate (four ungated).
+// The mask pass makes three probes per informative gate.
 //
 // The binned candidate pass computes the candidate kernel's words with a
 // blocked filter, where a group of chunks makes many probes per filter
@@ -106,7 +106,7 @@
 // depend on order, so the words are bit-exact.
 //
 // Whether it pays depends on the density of the group's probes on the
-// filter (utils/snv_sweep.py, PERF.md): on an H100 at 700 W it won or
+// filter (PERF.md section 6): on an H100 at 700 W it won or
 // tied at every group of 1.31 probes per sector and above (1.38-1.41x on
 // the 30 Mbp contig at 256 MiB) and lost at 0.67 and below (by up to
 // 1.47x at 4 GiB), so the wrapper's rule (ops/snv_kernel.py binned) takes
@@ -130,7 +130,7 @@
 // The site row kernel gives a row to kRowLanes = 4 adjacent lanes, each a
 // contiguous run of the row's window items (item 0 the head, item 1 + s
 // stride s): against 1, 2 and 8 lanes on the SNV path's lists of 20 k
-// and 188 k rows (utils/site_sweep.py, chip_smoke.py; PERF.md) 4 was the
+// and 188 k rows (PERF.md section 6) 4 was the
 // fastest at both.  A lane hashes its first item from its k bytes and rolls on
 // through the rest: one pass over [h, h + 2k) for a whole row, 2k roll
 // steps where hashing each window from scratch took k (ceil(k / jump) +
@@ -163,10 +163,10 @@
 // The mask kernel gives one thread to each gate: it hashes its window from
 // the ASCII in one forward pass (gates cluster, so neighbouring threads
 // read neighbouring bytes through the L1) and sends its three probes
-// together (four ungated).  A block that staged its run's span in shared
+// together.  A block that staged its run's span in shared
 // memory first, each 16-byte vector read once, was slower on an H100:
 // 0.1014 ms against 0.0960 on the 30 Mbp contig's gates, in 20 of 20
-// rounds (utils/mask_sweep.py, PERF.md).
+// rounds (PERF.md section 6).
 //
 // There are no caps and no overflow path: a list is as long as it is.
 // Every index is 64-bit, grids are sized in 64 bits and checked.
@@ -193,8 +193,7 @@ constexpr int kPolishThreads = 256;         // polish row kernel: threads per bl
 constexpr int kPolishGates = 2 * kPolishThreads;  // gates a polish block takes
 constexpr int kMaxPolishLanes = 8;          // lanes a polish row at most
 constexpr uint32_t kExactGate = 32;         // polish rows: flags bit 5
-constexpr int kMaskProbes = 4;              // mask kernel: the four bases at the site
-constexpr int kMaskProbesGated = 3;         // at an absence gate: the three alternates
+constexpr int kMaskProbes = 3;              // mask kernel: the three alternates at an absence gate
 constexpr int kMaxCandSlices = 256;         // binned candidate pass: filter slices (one per thread)
 constexpr int kCandRoundHeads = 4;          // its front end: heads a thread takes per round
 constexpr int kCandRounds = kHeads / kCandRoundHeads;
@@ -478,10 +477,7 @@ snv_cand_probe_kernel(const uint64_t* __restrict__ can, const uint32_t* __restri
 			atomicOr(out + (h[u] >> 5), 1u << (h[u] & 31));
 }
 
-// code of "ACGT"[c]: A 0, C 1, G 3, T 2
-__device__ __forceinline__ unsigned code_of_base(int c) { return c == 2 ? 3u : (c == 3 ? 2u : (unsigned)c); }
-
-// index in "ACGT" of a 2-bit code: the inverse of code_of_base
+// index in "ACGT" of a 2-bit code (A 0, C 1, G 3, T 2)
 __device__ __forceinline__ unsigned base_of_code(unsigned x) { return x ^ (x >> 1); }
 
 // ---------------------------------------------------------------------------
@@ -841,16 +837,15 @@ struct MaskTables {
 	uint64_t seed_f[4], last_r[4];
 };
 
-// The candidate masks, one thread a head.  Gated: the heads are absence
-// gates of this filter, so the draft's own base is 0 with no probe (three
-// probes a gate); otherwise all four bases are probed.  0xFF where [h, h +
-// k) holds a byte that is not ACGTacgt, with no probe.
-template <int L, bool Gated>
+// The candidate masks, one thread a head.  The heads are absence gates of
+// this filter, so the draft's own base is 0 with no probe (three probes a
+// gate).  0xFF where [h, h + k) holds a byte that is not ACGTacgt, with no
+// probe.
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 cand_masks_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __restrict__ gates,
                   uint64_t n_gates, Filter f, uint8_t* __restrict__ masks)
 {
-	constexpr int kProbes = Gated ? kMaskProbesGated : kMaskProbes;
 	__shared__ MaskTables tb;
 	const unsigned t = threadIdx.x;
 	const int k = f.k;
@@ -879,19 +874,19 @@ cand_masks_kernel(const uint8_t* __restrict__ seq, uint64_t n, const int64_t* __
 	// changelast: take the draft's base out, put each probed base in
 	const unsigned cd = code_of(p[k - 1]);
 	const uint64_t fx = fh ^ tb.seed_f[cd], rx = rh ^ tb.last_r[cd];
-	uint64_t can[kProbes];
-	unsigned bit[kProbes];
+	uint64_t can[kMaskProbes];
+	unsigned bit[kMaskProbes];
 #pragma unroll
-	for (int a = 0; a < kProbes; ++a) {
-		const unsigned cb = Gated ? (cd + 1 + a) & 3 : code_of_base(a);
+	for (int a = 0; a < kMaskProbes; ++a) {
+		const unsigned cb = (cd + 1 + a) & 3;
 		bit[a] = base_of_code(cb);
 		const uint64_t fb = fx ^ tb.seed_f[cb], rb = rx ^ tb.last_r[cb];
 		can[a] = fb < rb ? fb : rb;
 	}
-	const uint32_t fail = probe_batch<L, kProbes>(can, (1u << kProbes) - 1, f);
+	const uint32_t fail = probe_batch<L, kMaskProbes>(can, (1u << kMaskProbes) - 1, f);
 	uint32_t m = 0;
 #pragma unroll
-	for (int a = 0; a < kProbes; ++a)
+	for (int a = 0; a < kMaskProbes; ++a)
 		m |= ((~fail >> a) & 1u) << bit[a];
 	masks[g] = (uint8_t)m;
 }
@@ -1040,14 +1035,13 @@ int nts_site_rows(const void* seq, uint64_t n, int k, const void* heads, uint64_
 // The lanes a polish block gives each of its ``c`` rows.
 int nts_polish_lanes(uint32_t c) { return polish_lanes(c); }
 
-// Candidate masks of the ``n_gates`` heads ``gates`` (int64) of a contig
-// of ``n`` heads, whose n + k - 1 bytes lie at ``seq``; ``masks`` holds
-// n_gates bytes.  ``gated`` 1: the heads are absence gates of this filter
-// (the draft's own base is 0, not probed); 0: any heads, all four bases
-// probed.
+// Candidate masks of the ``n_gates`` absence gates ``gates`` (int64) of
+// this filter in a contig of ``n`` heads, whose n + k - 1 bytes lie at
+// ``seq``; ``masks`` holds n_gates bytes (the draft's own base is 0, not
+// probed).
 int nts_cand_masks(const void* seq, uint64_t n, int k, const void* gates, uint64_t n_gates,
                    const void* table, uint64_t modulus, uint64_t magic, int wbits, int layout,
-                   int hash_num, int gated, void* masks, void* stream)
+                   int hash_num, void* masks, void* stream)
 {
 	if (n_gates == 0)
 		return 0;
@@ -1062,14 +1056,10 @@ int nts_cand_masks(const void* seq, uint64_t n, int k, const void* gates, uint64
 	if (blocks > 0x7FFFFFFFULL)
 		return (int)cudaErrorInvalidValue;
 	const unsigned b = (unsigned)blocks;
-	if (layout == kPlain && gated)
-		cand_masks_kernel<kPlain, true><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
-	else if (layout == kPlain)
-		cand_masks_kernel<kPlain, false><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
-	else if (layout == kBlocked && gated)
-		cand_masks_kernel<kBlocked, true><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
+	if (layout == kPlain)
+		cand_masks_kernel<kPlain><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
 	else if (layout == kBlocked)
-		cand_masks_kernel<kBlocked, false><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
+		cand_masks_kernel<kBlocked><<<b, kThreads, 0, st>>>(s, n, g, n_gates, f, m);
 	else
 		return (int)cudaErrorInvalidValue;
 	return (int)cudaGetLastError();
@@ -1077,9 +1067,8 @@ int nts_cand_masks(const void* seq, uint64_t n, int k, const void* gates, uint64
 
 // Resident blocks per SM: which = 0, 1 for the candidate kernel's plain and
 // blocked forms, 2, 3 for the site kernel's, 4, 5 for its polish form's,
-// 6, 7 for the mask kernel's four-probe forms, 8, 9 for the binned front
-// end's counting and scattering forms, 10 for its probe kernel, 11, 12 for
-// the mask kernel's gated forms.  Negative on error.
+// 6, 7 for the mask kernel's, 8, 9 for the binned front end's counting and
+// scattering forms, 10 for its probe kernel.  Negative on error.
 int nts_occupancy(int which)
 {
 	int blocks = 0;
@@ -1091,8 +1080,8 @@ int nts_occupancy(int which)
 	case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, site_rows_kernel<kBlocked>, kRowThreads, 0); break;
 	case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, polish_rows_kernel<kPlain>, kPolishThreads, 0); break;
 	case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, polish_rows_kernel<kBlocked>, kPolishThreads, 0); break;
-	case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kPlain, false>, kThreads, 0); break;
-	case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kBlocked, false>, kThreads, 0); break;
+	case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kPlain>, kThreads, 0); break;
+	case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kBlocked>, kThreads, 0); break;
 	case 8: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_bin_kernel<false>, kThreads, 0); break;
 	case 9:
 		err = static_cast<cudaError_t>(stage_smem_ok());
@@ -1101,8 +1090,6 @@ int nts_occupancy(int which)
 			                                                    kCandStageBytes);
 		break;
 	case 10: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, snv_cand_probe_kernel, kThreads, 0); break;
-	case 11: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kPlain, true>, kThreads, 0); break;
-	case 12: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cand_masks_kernel<kBlocked, true>, kThreads, 0); break;
 	}
 	return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -1113,7 +1100,7 @@ const char* nts_error_string(int code)
 }
 
 int nts_cand_batch(int layout) { return kAlts * (layout == kPlain ? kSnvHeadsPlain : kSnvHeadsBlocked); }
-int nts_mask_batch(int gated) { return gated ? kMaskProbesGated : kMaskProbes; }
+int nts_mask_batch() { return kMaskProbes; }
 int nts_site_batch(int layout) { return 4 * (layout == kPlain ? kSiteWindowsPlain : kSiteWindowsBlocked); }
 int nts_site_lanes() { return kRowLanes; }
 int nts_polish_gates() { return kPolishGates; }

@@ -325,7 +325,7 @@ def polish_candidate_masks(
     stream: Optional["torch.cuda.Stream"] = None,
 ) -> np.ndarray:
     """uint8 masks parallel to the polish-mode gate heads ``gates`` of one
-    contig (ops/snv_kernel.py polish_cand_masks, gated): bit c = the
+    contig (ops/snv_kernel.py polish_cand_masks): bit c = the
     window's k-mer with its last base set to "ACGT"[c] is in the filter,
     the draft's own base 0 (a gate's own k-mer is absent); 0xFF = the
     window holds a byte that is not ACGT, probe live.  For callers that
@@ -339,7 +339,7 @@ def polish_candidate_masks(
     with _on_stream(df, stream):
         dev_seq, _staged_buf = _upload(seq, len(seq), df.device)
         dev_gates = torch.from_numpy(gates).to(df.device)
-        return snv_kernel.polish_cand_masks(dev_seq, n, dev_gates, df, gated=True).cpu().numpy()
+        return snv_kernel.polish_cand_masks(dev_seq, n, dev_gates, df).cpu().numpy()
 
 
 def contig_gates_and_masks(
@@ -364,7 +364,7 @@ def contig_gates_and_masks(
         words = torch.cat([gate_kernel.gate_words(dev_seq[start:], min(chunk, n - start), df)
                            for start in range(0, n, chunk)])
         gates = positions_on_device(words)
-        masks = snv_kernel.polish_cand_masks(dev_seq, n, gates, df, gated=True)
+        masks = snv_kernel.polish_cand_masks(dev_seq, n, gates, df)
         if df.device.type != "cuda":
             return gates.numpy(), masks.numpy()
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)

@@ -114,8 +114,8 @@ class Polisher:
         are the same either way; both apply only where the JAX package
         allows them (non-counting filter, no reject filter, -m != 2).  The
         polish-mode defaults follow the card's timing in turns at 50 Mbp
-        (chip_smoke.py, PERF.md): the engine with rows was no slower in 4
-        rounds of 5 in one run and 0 in another, with masks in 2 and 1."""
+        (PERF.md section 6): the engine with rows was no slower in 4 rounds of
+        5 in one run and 0 in another, with masks in 2 and 1."""
         self.device = resolve_device(device)
         if cfg is None:
             cfg = EngineConfig(k=host_bloom.k, hash_num=host_bloom.hash_num)

@@ -54,7 +54,8 @@ from ntedit_tpu_torch.utils.build import build_library
 
 SOURCE = os.path.join(gate_kernel.CSRC, "build_kernel.cu")
 LAYOUTS = ("blocked", "plain")
-SLICE_BITS = 25    # counters per slice of the count pass: 2^25, 32 MiB (utils/build_sweep.py)
+# counters per slice of the count pass: 2^25, 32 MiB, the fastest (PERF.md section 6)
+SLICE_BITS = 25
 MAX_SLICES = 1024  # slices of one count table (csrc kMaxSlices)
 MAX_SLICE_BITS = 32  # a slot's offset in its slice is a uint32
 APPLY_CHUNK = 2048  # entries per block of the apply kernel (csrc kApplyChunk)

@@ -138,10 +138,10 @@ def build_log() -> str:
         return f.read()
 
 
-def open_library(path: str, batch: int = BATCH):
+def open_library(path: str):
     """Load a build of the kernel and declare its C interface.  Raises when
-    it cannot be loaded or its tile, halo or batch (``batch``: the build's
-    kBatch) differ from the wrapper's."""
+    it cannot be loaded or its tile, halo or batch differ from the
+    wrapper's."""
     lib = ctypes.CDLL(path)
     lib.ntg_gate_words.restype = ctypes.c_int
     lib.ntg_gate_words.argtypes = [
@@ -164,7 +164,7 @@ def open_library(path: str, batch: int = BATCH):
         getattr(lib, name).argtypes = []
     lib.ntg_error_string.restype = ctypes.c_char_p
     lib.ntg_error_string.argtypes = [ctypes.c_int]
-    if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, batch):
+    if (lib.ntg_tile_heads(), lib.ntg_halo_bytes(), lib.ntg_batch()) != (TILE, HALO, BATCH):
         raise RuntimeError("gate kernel tile/halo/batch differ from the wrapper's")
     return lib
 

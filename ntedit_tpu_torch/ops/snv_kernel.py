@@ -51,16 +51,17 @@ On the card a block takes 512 gates: its threads write bit 5, list the
 cluster starts with a valid row in shared memory and then compute those
 rows as the SNV form does.
 
-``polish_cand_masks(seq, n, gates, df, gated=...)`` returns one uint8 per
-head (int64, any order): bit c = contains(window at h with its last base
-set to "ACGT"[c]), for all four c, the draft's own base included; 0xFF
-where [h, h + k) holds a byte that is not ACGTacgt.  ``gated`` has no
-default.  With ``gated=True`` (every caller on a path) the heads are
-absence gates of this filter, so the draft's own base (the window's own
-k-mer) is absent at an ACGTacgt window: its bit is 0 without a probe,
-three probes a gate where ``gated=False`` makes four.  The engine takes
-the bits of the alternates as its first substitution probe at pristine
-windows.  On the card a thread takes a head.
+``polish_cand_masks(seq, n, gates, df)`` returns one uint8 per gate head
+(int64, any order): bit c = contains(window at h with its last base set
+to "ACGT"[c]), for the three alternates c; 0xFF where [h, h + k) holds a
+byte that is not ACGTacgt.  The heads are absence gates of this filter,
+so the draft's own base (the window's own k-mer) is absent at an ACGTacgt
+window: its bit is 0 without a probe, three probes a gate.  The engine
+takes the bits of the alternates as its first substitution probe at
+pristine windows.  On the card a thread takes a head.
+``polish_cand_masks_plain(..., gated)`` also computes the four-probe
+function (``gated=False``: all four bases probed at any head), which the
+tests hold the JAX package's four planes to.
 
 All take a blocked or a plain filter and raise for a counting one (those
 runs go through the gate pass alone).  On a CUDA tensor a wrapper launches
@@ -96,13 +97,12 @@ CAND_BATCH = {"blocked": 6, "plain": 3}
 SITE_BATCH = {"blocked": 8, "plain": 4}
 SITE_LANES = 4  # lanes it gives an SNV row (csrc kRowLanes)
 POLISH_GATES = 512  # gates a block of its polish form takes (csrc kPolishGates)
-# the mask kernel's, by ``gated``: the three alternates at an absence gate,
-# else the four bases at the site (csrc kMaskProbesGated, kMaskProbes)
-MASK_BATCH = {True: 3, False: 4}
+# the mask kernel's: the three alternates at an absence gate (csrc kMaskProbes)
+MASK_BATCH = 3
 EXACT_GATE = 32  # polish rows: flags bit 5, "device-exact gate"
 # the binned candidate pass: slices of 2^22 filter words (16 MiB), raised
-# until the filter has at most CAND_SLICES of them (utils/snv_sweep.py on
-# an H100: the fastest at 256 MiB to 4 GiB); the kernels take up to
+# until the filter has at most CAND_SLICES of them (on an H100 the fastest
+# at 256 MiB to 4 GiB: PERF.md section 6); the kernels take up to
 # MAX_CAND_SLICES (csrc kMaxCandSlices)
 CAND_SLICE_BITS = 22
 CAND_SLICES = 64
@@ -111,7 +111,7 @@ PROBE_CHUNK = 1024  # entries per block of its probe kernel (csrc kProbeChunk)
 CAND_ROUND_HEADS = 4  # heads a thread of its front end takes per round (csrc kCandRoundHeads)
 CAND_ROUNDS = 32 // CAND_ROUND_HEADS
 # the density rule (see ``binned``): the binned pass won or tied at 1.31
-# probes a sector and above, lost at 0.67 and below (utils/snv_sweep.py)
+# probes a sector and above, lost at 0.67 and below (PERF.md section 6)
 MIN_PROBES_PER_SECTOR = 1.0
 ENTRY_BYTES = 12  # an entry: the alternate's canonical hash (8 B) and its head (4 B)
 
@@ -481,19 +481,6 @@ def build_log() -> str:
         return f.read()
 
 
-def declare_site_rows(lib) -> None:
-    """Declare the site kernel's C interface on a build of the kernels."""
-    filt = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,  # table, modulus, magic
-            ctypes.c_int, ctypes.c_int, ctypes.c_int]           # wbits, layout, hash_num
-    lib.nts_site_rows.restype = ctypes.c_int
-    lib.nts_site_rows.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,   # seq, n, k
-                                  ctypes.c_void_p, ctypes.c_uint64,                 # heads, n_heads
-                                  *filt, ctypes.c_int, ctypes.c_int,                # jump, polish
-                                  ctypes.c_void_p, ctypes.c_void_p]                 # rows, stream
-    lib.nts_error_string.restype = ctypes.c_char_p
-    lib.nts_error_string.argtypes = [ctypes.c_int]
-
-
 def open_library(path: str):
     """Load a build of the kernels and declare its C interface.  Raises
     when it cannot be loaded or its tile or halo differ from the gate
@@ -504,14 +491,17 @@ def open_library(path: str):
     lib.nts_cand_words.restype = ctypes.c_int
     lib.nts_cand_words.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    *filt, ctypes.c_void_p, ctypes.c_void_p]         # out, stream
-    declare_site_rows(lib)
+    lib.nts_site_rows.restype = ctypes.c_int
+    lib.nts_site_rows.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,   # seq, n, k
+                                  ctypes.c_void_p, ctypes.c_uint64,                 # heads, n_heads
+                                  *filt, ctypes.c_int, ctypes.c_int,                # jump, polish
+                                  ctypes.c_void_p, ctypes.c_void_p]                 # rows, stream
     lib.nts_polish_lanes.restype = ctypes.c_int
     lib.nts_polish_lanes.argtypes = [ctypes.c_uint32]
     lib.nts_cand_masks.restype = ctypes.c_int
     lib.nts_cand_masks.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,  # seq, n, k
                                    ctypes.c_void_p, ctypes.c_uint64,                # gates, n_gates
-                                   *filt, ctypes.c_int,                             # gated
-                                   ctypes.c_void_p, ctypes.c_void_p]                # masks, stream
+                                   *filt, ctypes.c_void_p, ctypes.c_void_p]         # masks, stream
     u64, ptr, i32 = ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int
     lib.nts_cand_bin.restype = i32
     lib.nts_cand_bin.argtypes = [ptr, u64, i32,                 # seq, n, k
@@ -530,18 +520,19 @@ def open_library(path: str):
         getattr(lib, name).argtypes = []
     lib.nts_cand_batch.restype = ctypes.c_int
     lib.nts_cand_batch.argtypes = [ctypes.c_int]
-    for name in ("nts_site_lanes", "nts_polish_gates"):
+    for name in ("nts_site_lanes", "nts_polish_gates", "nts_mask_batch"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
-    for name in ("nts_site_batch", "nts_mask_batch"):
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = [ctypes.c_int]
+    lib.nts_site_batch.restype = ctypes.c_int
+    lib.nts_site_batch.argtypes = [ctypes.c_int]
+    lib.nts_error_string.restype = ctypes.c_char_p
+    lib.nts_error_string.argtypes = [ctypes.c_int]
     if (lib.nts_tile_heads(), lib.nts_halo_bytes()) != (gate_kernel.TILE, gate_kernel.HALO):
         raise RuntimeError("SNV kernel tile/halo differ from the wrapper's")
     if any(lib.nts_cand_batch(LAYOUT_CODE[name]) != b for name, b in CAND_BATCH.items()):
         raise RuntimeError("SNV candidate kernel batch differs from the wrapper's")
-    if (lib.nts_site_lanes(), lib.nts_polish_gates()) != (SITE_LANES, POLISH_GATES) or any(
-            lib.nts_mask_batch(int(gated)) != b for gated, b in MASK_BATCH.items()) or any(
+    if (lib.nts_site_lanes(), lib.nts_polish_gates(), lib.nts_mask_batch()) != (
+            SITE_LANES, POLISH_GATES, MASK_BATCH) or any(
             lib.nts_site_batch(LAYOUT_CODE[name]) != b for name, b in SITE_BATCH.items()):
         raise RuntimeError("mask or site kernel batch or lanes differ from the wrapper's")
     if (lib.nts_max_cand_slices(), lib.nts_probe_chunk(), lib.nts_cand_rounds()) != (
@@ -675,10 +666,9 @@ def polish_lanes(rows: int) -> int:
 
 
 def _site_rows(seq: torch.Tensor, n: int, heads: torch.Tensor, df, jump: int,
-               polish: bool, lib=None) -> torch.Tensor:
-    """Launch the site kernel (SNV or polish form) on the current stream;
-    ``lib`` another build of it (declare_site_rows), for timing."""
-    lib = lib or load_library()
+               polish: bool) -> torch.Tensor:
+    """Launch the site kernel (SNV or polish form) on the current stream."""
+    lib = load_library()
     _check_filter(df)
     _check_seq(seq, df, n + df.k - 1, aligned=False)
     heads = heads.contiguous()
@@ -727,19 +717,14 @@ def polish_site_rows(seq: torch.Tensor, n: int, gates: torch.Tensor, df, jump: i
     return rows
 
 
-def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df, *,
-                      gated: bool) -> torch.Tensor:
-    """Candidate masks uint8 [G] of the heads ``gates`` (int64 [G], on
-    ``seq``'s device) of a contig of ``n`` heads; ``seq`` holds its
-    n + k - 1 bytes.  ``gated`` (no default: a caller names its form):
-    True where the heads are absence gates of ``df``, as on every path
-    (the draft's own base is not probed); False for any heads.  On CUDA
-    the kernel runs on the current stream and the call does not
-    synchronise; each launch counts in ``launches`` and in
-    ``form_launches`` under its form."""
+def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df) -> torch.Tensor:
+    """Candidate masks uint8 [G] of the absence gates ``gates`` (int64 [G],
+    on ``seq``'s device) of ``df`` in a contig of ``n`` heads; ``seq``
+    holds its n + k - 1 bytes.  On CUDA the kernel runs on the current
+    stream and the call does not synchronise."""
     _check_heads(seq, gates, "candidate masks")
     if seq.device.type == "cpu":
-        return polish_cand_masks_plain(seq, n, gates, df, gated)
+        return polish_cand_masks_plain(seq, n, gates, df, True)
     lib = load_library()
     _check_filter(df)
     _check_seq(seq, df, n + df.k - 1, aligned=False)
@@ -748,13 +733,12 @@ def polish_cand_masks(seq: torch.Tensor, n: int, gates: torch.Tensor, df, *,
     if not gates.shape[0]:
         return masks
     rc = lib.nts_cand_masks(seq.data_ptr(), n, df.k, gates.data_ptr(), gates.shape[0],
-                            *_filter_args(df), int(bool(gated)), masks.data_ptr(),
+                            *_filter_args(df), masks.data_ptr(),
                             torch.cuda.current_stream(seq.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"candidate mask kernel launch failed: {lib.nts_error_string(rc).decode()}")
     with _count_lock:
         polish_cand_masks.launches += 1
-        polish_cand_masks.form_launches["gated" if gated else "four_probe"] += 1
     return masks
 
 
@@ -765,12 +749,10 @@ snv_cand_probe.launches = 0
 snv_site_rows.launches = 0
 polish_site_rows.launches = 0
 polish_cand_masks.launches = 0
-polish_cand_masks.form_launches = {"gated": 0, "four_probe": 0}
 
 OCCUPANCY_FORMS = ("cand_plain", "cand_blocked", "site_plain", "site_blocked",
                    "polish_site_plain", "polish_site_blocked", "masks_plain", "masks_blocked",
-                   "cand_bin_count", "cand_bin_scatter", "cand_probe", "masks_gated_plain",
-                   "masks_gated_blocked")
+                   "cand_bin_count", "cand_bin_scatter", "cand_probe")
 
 
 def occupancy() -> dict:

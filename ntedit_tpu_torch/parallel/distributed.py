@@ -39,7 +39,7 @@ def backend_for(device) -> str:
     return "gloo" if torch.device(device).type == "cpu" else "cpu:gloo,cuda:nccl"
 
 
-def initialize_from_env(device="cuda") -> None:
+def initialize_from_env(device="cuda") -> bool:
     """Join the process group from the environment; the command line calls
     this once ``--device`` is known (cli.main).  Launch every rank with
 
@@ -49,14 +49,14 @@ def initialize_from_env(device="cuda") -> None:
 
     or set NTEDIT_TPU_DISTRIBUTED=1 to take a launcher's ``env://``
     variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; torchrun sets
-    them).  With neither set it does nothing."""
+    them).  With neither set it does nothing.  True when this call joined
+    the group."""
     if os.environ.get("NTEDIT_TPU_DISTRIBUTED") == "1":
-        initialize(init_method="env://", device=device)
-        return
+        return initialize(init_method="env://", device=device)
     coord = os.environ.get("NTEDIT_TPU_COORDINATOR")
     if not coord:
-        return
-    initialize(
+        return False
+    return initialize(
         coordinator_address=coord,
         num_processes=int(os.environ["NTEDIT_TPU_NUM_PROCESSES"]),
         process_id=int(os.environ["NTEDIT_TPU_PROCESS_ID"]),
@@ -70,17 +70,17 @@ def initialize(
     process_id: Optional[int] = None,
     device="cuda",
     init_method: Optional[str] = None,
-) -> None:
+) -> bool:
     """Join the default process group: at ``tcp://<coordinator_address>``
     with ``num_processes`` ranks, this one ``process_id``, or at
     ``init_method`` (a URL; ``env://`` reads the launcher's variables).
     No-op when already joined, or single-process with no coordinator.
-    Asking for CUDA without a card raises."""
+    Asking for CUDA without a card raises.  True when this call joined."""
     if dist.is_initialized():
-        return
+        return False
     if init_method is None:
         if coordinator_address is None and num_processes in (None, 1):
-            return  # single-process run: nothing to join
+            return False  # single-process run: nothing to join
         init_method = f"tcp://{coordinator_address}"
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run the "
@@ -88,6 +88,14 @@ def initialize(
     kw = {} if num_processes is None else {"world_size": num_processes, "rank": process_id}
     dist.init_process_group(backend_for(device), init_method=init_method, timeout=TIMEOUT,
                             **kw)
+    return True
+
+
+def shutdown() -> None:
+    """Leave the default process group.  Its threads then stop before the
+    interpreter's teardown, which aborts a rank ("terminate called without
+    an active exception") when it meets them running."""
+    dist.destroy_process_group()
 
 
 def active() -> bool:

@@ -330,8 +330,8 @@ def sharded_polish_cand_masks(mesh: Mesh, seq: np.ndarray, gates: np.ndarray, wo
     heads ``gates`` of contig ``seq``: what the JAX package's sharded
     polish gathers from ``sharded_polish_cand_planes`` with
     ``flag.cand_masks_from_planes``.  Each rank computes those of its
-    contiguous share of the gates (``snv_kernel.polish_cand_masks``, gated:
-    a gate's own k-mer is absent, so only the alternates are probed, over
+    contiguous share of the gates (``snv_kernel.polish_cand_masks``: a
+    gate's own k-mer is absent, so only the alternates are probed, over
     the span of the contig they cover), then an all_gather."""
     _member(mesh)
     df = _device_filter(words, mesh.device, k=k, hash_num=hash_num, nbits=nbits,
@@ -344,8 +344,7 @@ def sharded_polish_cand_masks(mesh: Mesh, seq: np.ndarray, gates: np.ndarray, wo
         lo, hi = int(share[0]), int(share[-1]) + k
         span = torch.from_numpy(np.ascontiguousarray(seq[lo:hi])).to(mesh.device)
         heads = torch.from_numpy(share - lo).to(mesh.device)
-        mine[: len(share)] = snv_kernel.polish_cand_masks(span, hi - lo - k + 1, heads, df,
-                                                          gated=True)
+        mine[: len(share)] = snv_kernel.polish_cand_masks(span, hi - lo - k + 1, heads, df)
     return _gather(mine, mesh)[: len(gates)]
 
 

@@ -8,8 +8,7 @@ seed, without the network.  ``decorate`` adds the bytes a draft must
 survive, ``polish_genome`` makes the polish workload's truths and drafts,
 ``snv_genome`` makes the SNV workload (a reference and a copy
 with substitutions), and ``fill_counts`` and ``chunk_filters`` build the
-filters the card's runs time the gate kernel with (chip_smoke.py,
-utils/gate_sweep.py, utils/snv_sweep.py).
+filters the card's runs time the gate kernel with (chip_smoke.py).
 """
 
 from __future__ import annotations

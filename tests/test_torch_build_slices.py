@@ -21,7 +21,7 @@ from ntedit_tpu_torch.core import bfbuild
 from ntedit_tpu_torch.core import nthash as nt
 from ntedit_tpu_torch.ops import build_kernel as bk
 from ntedit_tpu_torch.ops import gate_kernel
-from ntedit_tpu_torch.utils import build_sweep, simulate
+from ntedit_tpu_torch.utils import simulate
 
 K = 25
 MASK64 = (1 << 64) - 1
@@ -280,21 +280,6 @@ def test_builder_rejects_more_hashes_than_a_round_holds():
     with pytest.raises(ValueError, match="at most"):
         bfbuild.FilterBuilder(K, bk.MAX_HASH_NUM + 1, 1 << 12, 1000, "plain", "cpu")
     bfbuild.FilterBuilder(K, bk.MAX_HASH_NUM + 1, 1 << 12, 0, "plain", "cpu")  # no count pass
-
-
-def test_sweep_pieces_are_the_builds_batches(monkeypatch):
-    """build_sweep's reads: 150 bp records with a 0x00 after each, cut
-    into pieces of the batch size that overlap by k - 1 bytes, so every
-    window of the joined reads lies in exactly one piece."""
-    monkeypatch.setattr(build_sweep, "GENOME", 20_000)
-    pieces = build_sweep.read_pieces(batch=5000)
-    reads = 20_000 * build_sweep.COVERAGE // build_sweep.READ_LEN
-    assert all(len(p) == 5000 for p in pieces[:-1]) and len(pieces[-1]) <= 5000
-    assert all(np.array_equal(a[-(K - 1):], b[: K - 1]) for a, b in zip(pieces, pieces[1:]))
-    assert sum(len(p) - K + 1 for p in pieces) == reads * (build_sweep.READ_LEN + 1) - K + 1
-    assert int((pieces[0] == 0).sum()) == 5000 // (build_sweep.READ_LEN + 1)
-    seqs = build_sweep.upload(pieces[:2], "cpu")
-    assert [n for _, n in seqs] == [5000 - K + 1] * 2
 
 
 def test_bins_check_the_batch():

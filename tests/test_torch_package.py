@@ -63,6 +63,62 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_chip_smoke_imports_resolve():
+    """Every import of the port in chip_smoke.py, those inside its
+    functions included (it imports lazily, so the card would meet a
+    dangling one first), names a module and a name that exist."""
+    import importlib
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    seen = 0
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name.split(".")[0] == "ntedit_tpu_torch":
+                    importlib.import_module(alias.name)
+                    seen += 1
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "ntedit_tpu_torch"):
+            module = importlib.import_module(node.module)
+            for alias in node.names:
+                if not hasattr(module, alias.name):  # a submodule: import it
+                    importlib.import_module(f"{node.module}.{alias.name}")
+                assert hasattr(module, alias.name), f"{node.module}.{alias.name}"
+                seen += 1
+    assert seen > 20
+
+
+# each C source of the port, the wrapper that binds it, and what the
+# wrapper binds from a library the source links (the reader's zlib)
+C_ENTRIES = [("gate_kernel.cu", "ops/gate_kernel.py", ()),
+             ("snv_kernel.cu", "ops/snv_kernel.py", ()),
+             ("build_kernel.cu", "ops/build_kernel.py", ()),
+             ("mesh_kernel.cu", "ops/mesh_kernel.py", ()),
+             ("repair.cpp", "engine/native_repair.py", ()),
+             ("fastx_reader.cpp", "io/native.py", ("zlibVersion",))]
+
+
+@pytest.mark.parametrize("source,wrapper,linked", C_ENTRIES, ids=[c[0] for c in C_ENTRIES])
+def test_wrapper_binds_the_sources_c_entries(source, wrapper, linked):
+    """The functions a source defines in its extern "C" blocks are exactly
+    the entries its wrapper binds (``lib.<entry>``, or a name of a tuple
+    that a loop hands to ``getattr(lib, name)``): a binding of an entry
+    that is gone fails here, not at load on the card, and a dead entry
+    shows."""
+    import re
+
+    src = (ROOT / "ntedit_tpu_torch" / "csrc" / source).read_text()
+    defined = set()
+    for block in re.findall(r'extern "C" \{\n(.*?)\n\}  // extern "C"', src, re.S):
+        defined.update(re.findall(r"^(?:const )?\w+\**\s+\**(\w+)\(", block, re.M))
+    text = (ROOT / "ntedit_tpu_torch" / wrapper).read_text()
+    bound = set(re.findall(r"\blib\.(\w+)", text))
+    for var, names in re.findall(r"for (\w+) in \(([^)]*)\):\s*\n\s*getattr\(lib, \1\)", text):
+        bound.update(re.findall(r"[\"'](\w+)[\"']", names))
+    assert defined
+    assert bound - set(linked) == defined
+
+
 def test_build_digest_covers_every_file_read(tmp_path, monkeypatch):
     """An edited header builds a new library; unchanged files load the
     earlier build."""
@@ -128,8 +184,7 @@ def test_wrapper_raises_when_the_library_is_missing(failure, tmp_path, monkeypat
 
 @pytest.mark.parametrize("failure", ["build", "load"])
 @pytest.mark.parametrize("wrapper", ["snv_cand_words", "snv_site_rows", "polish_site_rows",
-                                     "polish_cand_masks", "polish_cand_masks_gated",
-                                     "snv_cand_bin", "snv_cand_probe"])
+                                     "polish_cand_masks", "snv_cand_bin", "snv_cand_probe"])
 def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_path, monkeypatch):
     if failure == "build":
         stub = tmp_path / "stub.cu"
@@ -143,7 +198,7 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
     monkeypatch.setattr(snv_kernel, "_lib", None)
     df = bloom.DeviceFilter.from_host(small_filter(), "cpu")
     seq = torch.empty(gate_kernel.padded_len(100), dtype=torch.uint8, device="meta")
-    fn = getattr(snv_kernel, wrapper.removesuffix("_gated"))
+    fn = getattr(snv_kernel, wrapper)
     with pytest.raises((RuntimeError, OSError)):
         heads = torch.empty(3, dtype=torch.int64, device="meta")
         bins = snv_kernel.CandBins(df.modulus, 100, "meta")
@@ -156,14 +211,10 @@ def test_snv_wrappers_raise_when_the_library_is_missing(wrapper, failure, tmp_pa
             bins.n, bins.columns = 100, snv_kernel.CAND_ROUNDS
             fn(bins, df, words)
         elif wrapper == "polish_cand_masks":
-            fn(seq, 100, heads, df, gated=False)
-        elif wrapper == "polish_cand_masks_gated":
-            fn(seq, 100, heads, df, gated=True)
+            fn(seq, 100, heads, df)
         else:
             fn(seq, 100, heads, df, 3)
     assert fn.launches == 0
-    if wrapper.startswith("polish_cand_masks"):
-        assert fn.form_launches == {"gated": 0, "four_probe": 0}
 
 
 @pytest.mark.parametrize("failure", ["build", "load"])
@@ -311,10 +362,9 @@ def test_polish_kernels_match_plain_on_the_card(layout, k, jump):
         heads = torch.from_numpy(heads).cuda()
         got = snv_kernel.polish_site_rows(seq, n, heads, df, jump)
         assert torch.equal(got, snv_kernel.polish_site_rows_plain(seq, n, heads, df, jump)), name
-    for gated in (False, True):
-        masks = snv_kernel.polish_cand_masks(seq, n, gates, df, gated=gated)
-        assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df, gated))
-        assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0
+    masks = snv_kernel.polish_cand_masks(seq, n, gates, df)
+    assert torch.equal(masks, snv_kernel.polish_cand_masks_plain(seq, n, gates, df, True))
+    assert int((masks == 0xFF).sum()) > 0 and int((masks != 0xFF).sum()) > 0
 
 
 @pytest.mark.cuda

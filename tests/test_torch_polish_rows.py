@@ -15,8 +15,9 @@ engines that use them.
 * Candidate masks (flag.polish_candidate_masks, ops/snv_kernel.py
   polish_cand_masks): the gated form (the heads are absence gates, the
   draft's own base is not probed) equal to the JAX package's at every gate,
-  0xFF cases included; the four-probe form (gated=False) at any head, its
-  own-base bit the window's own presence; both computed from int64
+  0xFF cases included; the plain four-probe form (polish_cand_masks_plain,
+  gated=False) at any head, its own-base bit the window's own presence;
+  both computed from int64
   positions (the JAX gather gives up past 2^31); the one-pass
   flag.contig_gates_and_masks equal to the gate pass followed by the masks,
   with one contig upload.
@@ -299,8 +300,8 @@ def test_mask_forms_at_any_head(layout):
     n = len(draft) - k + 1
     seq = torch.from_numpy(draft)
     heads = torch.arange(0, n + 3, dtype=torch.int64)  # and three past the last window
-    four = snv_kernel.polish_cand_masks(seq, n, heads, tdf, gated=False).numpy()
-    three = snv_kernel.polish_cand_masks(seq, n, heads, tdf, gated=True).numpy()
+    four = snv_kernel.polish_cand_masks_plain(seq, n, heads, tdf, False).numpy()
+    three = snv_kernel.polish_cand_masks(seq, n, heads, tdf).numpy()
     clean = four != 0xFF
     assert (~clean[n:]).all() and clean.sum() > n // 2
     own = 1 << np.searchsorted(ACGT, draft[np.minimum(heads.numpy(), n - 1) + k - 1] & 0xDF)
@@ -349,11 +350,11 @@ def test_mask_positions_above_2_31():
     big = torch.full((1,), ord("A"), dtype=torch.uint8).expand(length)
     heads = torch.tensor([5, (1 << 31) - 1, 1 << 31, (1 << 31) + 7, (1 << 32) + 3,
                           length - k], dtype=torch.int64)
-    masks = snv_kernel.polish_cand_masks(big, length - k + 1, heads, df, gated=False)
+    masks = snv_kernel.polish_cand_masks_plain(big, length - k + 1, heads, df, False)
     assert masks.tolist() == [0b0010] * len(heads)
     past = torch.tensor([length - k + 1, -1], dtype=torch.int64)  # no window there
-    assert snv_kernel.polish_cand_masks(big, length - k + 1, past, df,
-                                        gated=False).tolist() == [0xFF] * 2
+    assert snv_kernel.polish_cand_masks_plain(big, length - k + 1, past, df,
+                                              False).tolist() == [0xFF] * 2
 
 
 def host_scan(tf, cfg, draft):
