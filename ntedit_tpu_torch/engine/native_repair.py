@@ -295,7 +295,28 @@ def _gap_margin(cfg) -> tuple:
     ORIGINAL content; an edit's influence (content change + re-gate reach
     + trial lookahead) cannot cross it, so the scan state on the far side
     is exactly the fresh-seed state.  ``margin`` is the per-segment
-    activity bound checked by the overflow guard."""
+    activity bound checked by the overflow guard: a segment whose records
+    all lie at or before its last gate + ``margin`` is exact.
+
+    SNV mode (``cfg.snv``, validated: i = d = 0; the callers pass no mask)
+    has a reach of its own, from csrc/repair.cpp.  The rope never changes
+    shape, and the engine writes only in place at a visited head h's site
+    h + k - 1, each write a record (make_edit type 1), so the guard sees
+    every write.  A write at site t sets dirty_until = t + 1, and the scan
+    visits every head up to t (gate or not); past a bucket's last gate g a
+    visited head therefore lies at or before the furthest record.  A
+    visited head reads to h + 2k - 1 (fix_site rolls its window k times,
+    and each alternate's verify rolls k times from the same head; a site
+    row stands for the same reads).  So with every record at or before
+    g + margin, every read lies below g + margin + 2k, the slice's end:
+    gap = margin + 2k.
+    The margin is where the guard trips: 2k - 2 holds every record one
+    substitution at g's site can bring (it re-visits the heads up to
+    g + k - 1, whose sites reach g + 2k - 2), so a trip takes a second
+    substitution among those heads and a record past it."""
+    if cfg.snv:
+        margin = 2 * cfg.k - 2
+        return margin + 2 * cfg.k, margin
     gap = 4 * cfg.k + cfg.insertion_cap + cfg.max_deletions + 32
     margin = gap - 2 * cfg.k - cfg.max_deletions - 2
     return gap, margin
@@ -333,14 +354,19 @@ def _seg_runner(lib, contig, seq_bytes, bf_struct, rep_struct, params, margin):
 
 
 def _finish_segments(lib, header, seq_bytes, contig, all_gates, bf_struct,
-                     rep_struct, params, bounds, results):
-    """Handle overflow/failure fallbacks, then stitch segment results."""
+                     rep_struct, params, bounds, results, gate_cand=None, site_rows=None):
+    """Handle overflow/failure fallbacks, then stitch segment results.  An
+    overflow reruns the whole contig in one call (with ``gate_cand`` and
+    ``site_rows``, parallel to ``all_gates``), counted into
+    ``engine.segment_fallbacks``."""
     L = len(seq_bytes)
     if any(r is None for r in results):
         return None
     if any(isinstance(r, str) for r in results):
         # pathological cascade: exact fallback to the sequential whole run
-        return _whole_contig(lib, header, seq_bytes, all_gates, bf_struct, rep_struct, params)
+        profiling.count("engine.segment_fallbacks", 1)
+        return _whole_contig(lib, header, seq_bytes, all_gates, bf_struct, rep_struct, params,
+                             gate_cand, site_rows)
 
     # stitch: inter-segment clean spans + per-segment node streams (writers
     # merge coordinate-contiguous spans, so seam splits are render-equal)
@@ -448,7 +474,7 @@ def polish_contig_segmented(
         results = list(ex.map(lambda j: runner(*j), jobs))
     return _finish_segments(
         lib, header, seq_bytes, contig, gates, bf_struct, rep_struct, params,
-        [(j[0], j[1]) for j in jobs], results,
+        [(j[0], j[1]) for j in jobs], results, gate_cand, site_rows,
     )
 
 

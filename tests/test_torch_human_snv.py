@@ -61,6 +61,7 @@ def test_segmented_snv_repair_at_t8_equals_reference_and_t1(seed):
             got = _outputs(t8, entry, True)
         counters = rec.counters
         assert counters["engine.segments"] >= 2  # the threaded path, not one whole call
+        assert counters.get("engine.segment_fallbacks", 0) == 0  # no bucket overflowed
         assert counters["engine.site_rows"] == counters["engine.snv_candidates"] > 0
         want = ["", "", ""]
         for hdr, seq in entry:

@@ -8,7 +8,16 @@ bytes, a lowercase stretch and variants at both contig ends.
 One difference is deliberate and asserted: where the byte after a
 candidate's 2k - 1 checked bytes is not ACGT and the last stride window
 reads it (jump divides k - 1), the JAX package hands out a row computed
-from that byte coded as 'A'; the port's row is invalid (all zero)."""
+from that byte coded as 'A'; the port's row is invalid (all zero).
+
+The segmented SNV repair takes those candidates and rows: cut at SNV
+mode's own reach (``native_repair._gap_margin``), it equals the
+whole-contig engine, falls back to it once when a cascade of substitutions
+passes a bucket's margin, makes 32 buckets of the human cell's job at
+``-t 8``, and leaves polish mode's reach as it was."""
+
+import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -216,3 +225,166 @@ def test_positions_on_device_matches_host_unpack():
     want = tflag.packed_to_positions(words, 32 * len(words))
     got = tflag.positions_on_device(torch.from_numpy(words.view(np.int32)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# The segmented SNV repair's cut rule (native_repair._gap_margin in SNV mode):
+# the device's candidates and site rows through polish_contig_segmented equal
+# the whole-contig engine on the same candidates, bucket for bucket.
+# ---------------------------------------------------------------------------
+
+# (filter bytes, stand-in hashes) a k: ~4.3% candidates at k 25 (the human
+# cell's 4.55%), ~1% at k 55, so that both have legal cuts on 100 kbp
+SEGMENT_FILTERS = {25: (1 << 18, 45_000), 55: (1 << 19, 0)}
+
+
+def snv_segment_job(k, seed, length=100_000):
+    """(reference, blocked filter of a sample): one SNV a 400 bp at random
+    sites, 40% homozygous, both haplotypes in the filter, plus seeded
+    stand-in hashes for the rest of a genome's k-mers."""
+    rng = np.random.default_rng(seed)
+    ref = tsimulate.random_genome(length, seed=seed)
+    hap_a, hap_b = ref.copy(), ref.copy()
+    for s in rng.choice(np.arange(k, length - k), size=length // 400, replace=False):
+        hap_b[s] = other_base(ref[s], int(rng.integers(1, 4)))
+        if rng.random() >= 0.6:
+            hap_a[s] = hap_b[s]
+    nbytes, filler = SEGMENT_FILTERS[k]
+    bf = tbloom.BlockedKmerBloomFilter.zeros(nbytes, 3, k)
+    bf.insert_seq(hap_a)
+    bf.insert_seq(hap_b)
+    bf.insert_base(rng.integers(0, 2**64, size=filler, dtype=np.uint64))
+    return ref, bf
+
+
+def _segmented_and_whole(ref, bf, k, threads):
+    """The Polisher's candidates and site rows of ``ref``, then the
+    segmented repair under ``recording()`` and the whole-contig engine:
+    (segmented result, whole result, counters, candidates)."""
+    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+    from ntedit_tpu_torch.engine.polish import Polisher
+    from ntedit_tpu_torch.utils import profiling
+
+    cfg = EngineConfig(k=k, hash_num=3, snv=True, threads=threads)
+    pol = Polisher(bf, None, cfg, chunk=CHUNK, device="cpu")
+    assert pol._snv_fast_eligible()
+    cand, rows = tflag.snv_site_data(ref, pol.df, cfg.jump, chunk=pol.chunk)
+    with profiling.recording() as rec:
+        seg = native_repair.polish_contig_segmented(
+            bf, None, cfg, "c", ref, cand, threads=threads, allow_snv=True, site_rows=rows)
+    whole = native_repair.polish_contig_native(bf, None, cfg, "c", ref, gate_hint=cand,
+                                               site_rows=rows)
+    return seg, whole, rec.counters, cand
+
+
+def _render(res):
+    from ntedit_tpu_torch.io import writers
+
+    sinks = io.StringIO(), io.StringIO(), io.StringIO()
+    writers.write_contig(res, *sinks, None, snv=True)
+    return tuple(s.getvalue() for s in sinks)
+
+
+@pytest.mark.parametrize("seed", [2**31 + 19, 19])
+@pytest.mark.parametrize("threads", [2, 8])
+@pytest.mark.parametrize("k", [25, 55])
+def test_segmented_snv_repair_equals_whole_contig(k, threads, seed):
+    """SNV mode cuts at candidate-free gaps of more than 4k - 2 heads: ten
+    or more legal cuts on 100 kbp, four or more native calls, and the
+    edited sequence, records and the three outputs of the whole-contig
+    engine on the same candidates and rows."""
+    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+
+    ref, bf = snv_segment_job(k, seed)
+    seg, whole, counters, cand = _segmented_and_whole(ref, bf, k, threads)
+    gap, _ = native_repair._gap_margin(EngineConfig(k=k, snv=True).validate())
+    assert gap == 4 * k - 2
+    assert int((np.diff(cand) > gap).sum()) >= 10
+    assert counters["engine.segments"] >= 4
+    assert len(whole.subs) > 100
+    assert seg.edited == whole.edited and seg.subs == whole.subs
+    assert _render(seg) == _render(whole)
+
+
+@pytest.mark.parametrize("k", [25, 55])
+def test_snv_cascade_past_the_margin_falls_back_to_the_whole_contig(k):
+    """Homozygous SNVs chained from a bucket's last candidate g: the
+    substitution at its site makes the engine visit the next k - 1 heads,
+    one of them substitutes again, and the record after it lies past
+    g + 2k - 2, found by a verify that reads to g + 4k - 3, the slice's
+    last base.  The overflow guard sends the contig back to one whole call,
+    once (``engine.segment_fallbacks``), with the same output.  Every site
+    starts such a chain, so whichever candidate ends a bucket, some bucket
+    ends at one."""
+    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+
+    threads, length = 8, 40_000
+    rng = np.random.default_rng(k)
+    ref = tsimulate.random_genome(length, seed=k)
+    sites = np.arange(1000, length - 1000, 400)
+    hap_a, hap_b = ref.copy(), ref.copy()
+    for s0 in sites:
+        # homozygous at s0 and in its re-visits (s0 + k - 2), then one past the margin
+        for s, hom in ((s0, True), (s0 + k - 2, True), (s0 + 2 * k - 4, False)):
+            hap_b[s] = other_base(ref[s], int(rng.integers(1, 4)))
+            if hom:
+                hap_a[s] = hap_b[s]
+    bf = tbloom.BlockedKmerBloomFilter.zeros(1 << 20, 3, k)
+    bf.insert_seq(hap_a)
+    bf.insert_seq(hap_b)
+
+    seg, whole, counters, cand = _segmented_and_whole(ref, bf, k, threads)
+    cfg = EngineConfig(k=k, hash_num=3, snv=True, threads=threads).validate()
+    bounds, margin = native_repair._bucket_bounds(cand, cfg, 4 * threads)
+    ends = [int(cand[i1 - 1]) + k - 1 for _i0, i1 in bounds[:-1]]
+    chained = [s0 for s0 in ends if s0 in set(sites.tolist())]
+    assert chained and margin == 2 * k - 2
+    subs = {r.pos: r for r in whole.subs}
+    for s0 in chained:
+        assert subs[s0].sub_base != subs[s0].draft_char
+        assert subs[s0 + k - 2].sub_base != subs[s0 + k - 2].draft_char
+        assert s0 + 2 * k - 4 in subs and s0 + 2 * k - 4 > s0 - k + 1 + margin
+    assert counters["engine.segment_fallbacks"] == 1
+    assert counters["engine.segments"] == len(bounds) >= 4
+    assert seg.edited == whole.edited and seg.subs == whole.subs
+    assert _render(seg) == _render(whole)
+
+
+def test_snv_buckets_at_the_cells_scale():
+    """The human cell's job, as candidates only: 64.4 M heads at 4.55%
+    candidates, no candidate in the 500 kbp N run at 44%.  At -t 8 the SNV
+    rule (gap 218 at k 55) makes 32 buckets, none more than twice the
+    mean; polish mode's rule (gap 334 with d = 0) found 1 or 2 cuts there."""
+    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+
+    n = 64_444_167 - 55 + 1
+    rng = np.random.default_rng(2**31 + 5)
+    gates = np.cumsum(rng.geometric(0.0455, size=int(n * 0.0455 * 1.05))) - 1
+    run = int(0.44 * n)
+    gates = gates[(gates < run) | ((gates >= run + 500_000) & (gates < n))]
+    snv = EngineConfig(k=55, hash_num=3, snv=True, threads=8).validate()
+    assert native_repair._gap_margin(snv) == (218, 108)
+    bounds, margin = native_repair._bucket_bounds(gates, snv, 4 * 8)
+    sizes = np.array([i1 - i0 for i0, i1 in bounds])
+    assert margin == 108 and len(bounds) == 32 and sizes.sum() == len(gates)
+    assert all(b[1] == c[0] for b, c in zip(bounds, bounds[1:]))
+    assert sizes.max() <= 2 * len(gates) / 32
+    old = dataclasses.replace(snv, max_insertions=0, max_deletions=0, snv=False)
+    assert native_repair._gap_margin(old)[0] == 334
+    assert len(native_repair._bucket_bounds(gates, old, 4 * 8)[0]) <= 3
+
+
+@pytest.mark.parametrize("k,i,d,want", [(25, 4, 5, (174, 117)), (55, 5, 5, (339, 222))])
+def test_polish_gap_margin_is_unchanged(k, i, d, want):
+    """Polish mode keeps its reach: the ecoli cell's -k 25 -i 4 -d 5 and the
+    human polish configuration's -k 55 -i 5 -d 5, 4k + 1.5k + d + 32 and
+    that less 2k + d + 2."""
+    from ntedit_tpu_torch.engine import native_repair
+    from ntedit_tpu_torch.engine.config import EngineConfig
+
+    cfg = EngineConfig(k=k, hash_num=3, max_insertions=i, max_deletions=d).validate()
+    assert native_repair._gap_margin(cfg) == want
