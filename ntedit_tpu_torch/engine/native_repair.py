@@ -496,8 +496,9 @@ def polish_contig_pipelined(
     (flag.iter_polish_site_chunks), which travel with their gates into the
     segments.  Segments whose closing quiet gap is confirmed are submitted
     to the repair pool immediately, so the host repairs chunk i while the
-    device still computes chunk i+1's gates.  Output is identical to the
-    sequential scan.
+    device still computes chunk i+1's gates; each bucket handed to the pool
+    is one native call, counted into ``engine.segments``.  Output is
+    identical to the sequential scan.
 
     ``collect_gates``: optional list the consumed gate arrays are appended
     to, so a caller can reuse the dense pass as a hint if this engine
@@ -546,6 +547,7 @@ def polish_contig_pipelined(
             lo = int(bgates[0])
             hi = int(min(L, bgates[-1] + gap))
             bounds.append((lo, hi))
+            profiling.count("engine.segments", 1)
             futures.append(ex.submit(runner, lo, hi, bgates, None, brows))
             bucket = []
             bucket_rows = []

@@ -53,7 +53,8 @@ the wait for the next chunk of the stream; in SNV mode with the children
 ``engine.gates`` (the gates handed to the repair), ``engine.snv_candidates``
 (the device's SNV candidates, once a contig), ``engine.site_rows`` (the
 site rows handed to the repair) and ``engine.segments`` (the native calls
-of a contig's segmented repair).
+of a contig's segmented repair: its buckets, or 1 for a whole call; in the
+pipelined repair, each bucket handed to the pool).
 """
 
 from __future__ import annotations

@@ -389,7 +389,9 @@ def test_snv_run_records_its_device_pass_and_counts(snv_job, rows):
 
 def test_polish_run_keeps_its_span_and_counter_names(snv_job):
     """A polish-mode run records the names it recorded before the SNV
-    pass's spans and counters came, and none of those."""
+    pass's spans and counters came, and none of those; besides, since the
+    pipelined repair counts its buckets, ``engine.segments``: one for each
+    native call, each an ``engine.repair`` span."""
     from ntedit_tpu_torch.engine.config import EngineConfig
     from ntedit_tpu_torch.engine.polish import Polisher
 
@@ -401,5 +403,8 @@ def test_polish_run_keeps_its_span_and_counter_names(snv_job):
     assert res.subs
     assert {s.name for s in rec.spans} == {"engine.load", "engine.contig", "engine.gates",
                                            "engine.repair"}
-    assert set(rec.counters) == {"engine.bases", "engine.records", "engine.gates"}
-    assert not SNV_COUNTERS & set(rec.counters)
+    assert set(rec.counters) == {"engine.bases", "engine.records", "engine.gates",
+                                 "engine.segments"}
+    assert not (SNV_COUNTERS - {"engine.segments"}) & set(rec.counters)
+    repairs = [s for s in rec.spans if s.name == "engine.repair"]
+    assert rec.counters["engine.segments"] == len(repairs) >= 1
